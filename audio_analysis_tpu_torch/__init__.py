@@ -1,0 +1,30 @@
+"""
+audio_analysis_tpu_torch — the PyTorch/CUDA port of audio_analysis_tpu.
+
+The JAX package stays the reference; this package computes the same
+results with torch tensors on an explicit device, and replaces each Pallas
+TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
+
+  ops/      batched DSP primitives (torch), plus the kernel wrappers
+            ops.edc (Schroeder EDC, csrc/edc.cu) and ops.stft (frame STFT
+            magnitude, csrc/stft.cu)
+  engine/   the fused per-chunk analysis (analyze_batch) and the pipelined
+            bundle host entry (analyze_bundle_pipelined)
+  report/   the engine bundle report (per-tap markdown + bundle_metrics.json)
+  cli/      `python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots`
+  csrc/     CUDA sources, built with nvcc at first use (_build.py)
+
+WAV and bundle decoding is reused from `audio_analysis_tpu.io`, which loads
+no JAX. Nothing here imports jax or matplotlib.
+
+Float32 matrix products and convolutions run in full float32: TF32 keeps
+about three decimal digits, and low-precision products were measured to
+move the modal RT60 fits by a relative 1.5 in the JAX package's precision
+study.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")

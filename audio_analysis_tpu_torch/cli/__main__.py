@@ -1,0 +1,3 @@
+from audio_analysis_tpu_torch.cli.analyse_cli import main
+
+main()

@@ -1,0 +1,93 @@
+"""GPU-only copies of the kernel comparisons: each CUDA kernel of the port
+against its plain torch version on the card, and the engine on the card
+against the engine on the CPU. Marked `cuda`; every test skips where
+torch.cuda.is_available() is false. JAX is not needed (the card's machine
+has none). On the card:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Tolerances: EDC 0.02 dB above -100 dB, exact 0 past `length`; STFT
+max |err| / max(ref) < 1e-5; engine flags and counts exact, metrics as in
+tests/test_torch_engine.py.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
+from audio_analysis_tpu_torch.ops import edc, stft
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda", 0)
+
+
+def _decays(rows, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float32)
+    tau = 2000.0 + 60000.0 * torch.rand(rows, 1, generator=g)
+    x = torch.randn(rows, n, generator=g) * torch.exp(-t / tau)
+    lengths = torch.randint(1, n + 1, (rows,), generator=g, dtype=torch.int32)
+    lengths[0] = n
+    return torch.where(torch.arange(n) < lengths[:, None], x, 0.0), lengths
+
+
+@pytest.mark.parametrize("rows,n", [(64, 1 << 20), (16, (1 << 20) - 3 * 4096), (3, 4097), (2, 5)])
+def test_edc_kernel_matches_plain(dev, rows, n):
+    x, lengths = _decays(rows, n, rows + n)
+    x, lengths = x.to(dev), lengths.to(dev)
+    before = edc.EDC_KERNEL.launches
+    got = edc.schroeder_edc_db(x, lengths).edc_db
+    assert edc.EDC_KERNEL.launches == before + 1
+    ref = edc.schroeder_edc_db_plain(x, lengths)
+    usable = ref > -100.0
+    assert (got - ref).abs()[usable].max().item() <= 0.02
+    past = torch.arange(n, device=dev)[None, :] >= lengths[:, None]
+    assert bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())
+
+
+@pytest.mark.parametrize(
+    "n_fft,hop,k_out", [(4096, 512, None), (8192, 512, 3415), (4096, 1024, None), (256, 64, 100), (16384, 512, None)]
+)
+def test_stft_kernel_matches_plain(dev, n_fft, hop, k_out):
+    g = torch.Generator().manual_seed(n_fft + hop)
+    x = torch.randn(4, 1 << 18, generator=g).to(dev)
+    lengths = torch.tensor([1 << 18, 100000, n_fft, n_fft - 1], dtype=torch.int32, device=dev)
+    before = stft.STFT_KERNEL.launches
+    res = stft.stft_magnitude(x, lengths, n_fft, hop, True, 1e-6, k_out)
+    assert stft.STFT_KERNEL.launches == before + 1
+    ref = stft.stft_magnitude_plain(x, lengths, n_fft, hop, True, 1e-6, k_out)
+    assert res.mag.shape == ref.shape
+    assert ((res.mag - ref).abs().max() / ref.abs().max()).item() < 1e-5
+    assert torch.equal(res.mag == 0, ref == 0)
+
+
+def test_engine_on_card_matches_cpu(dev):
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    t = np.arange(n) / 48_000
+    x = np.zeros((2, 2, n), np.float32)
+    x[:, :, 256:] = 0.05 * rng.standard_normal((2, 2, n - 256)) * 10.0 ** (-3.0 * t[: n - 256] / 1.2)
+    x[:, :, 256] = 0.9
+    lengths = np.array([n, n - 9000], np.int32)
+    x[1, :, n - 9000 :] = 0.0
+    cfg = dataclasses.replace(EngineConfig(), band_mode="octave")
+    got = analyze_batch(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), cfg)
+    ref = analyze_batch(torch.from_numpy(x), torch.from_numpy(lengths), cfg)
+    assert sorted(got) == sorted(ref)
+    for key, value in ref.items():
+        a, b = got[key].cpu().numpy(), value.numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if key.endswith("_ok") or a.dtype == np.int32:
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            rtol = 1e-2 if key in ("modal_rt60", "modal_r2") else 1e-3
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-4, equal_nan=True, err_msg=key)
