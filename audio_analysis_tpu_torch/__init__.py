@@ -12,10 +12,11 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
             bundle host entry (analyze_bundle_pipelined)
   report/   the engine bundle report (per-tap markdown + bundle_metrics.json)
   cli/      `python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots`
+  io/       WAV and capture-bundle I/O (numpy, scipy, and a ctypes binding of
+            the repo's C++ decoder cpp/audioio.cpp)
   csrc/     CUDA sources, built with nvcc at first use (_build.py)
 
-WAV and bundle decoding is reused from `audio_analysis_tpu.io`, which loads
-no JAX. Nothing here imports jax or matplotlib.
+Nothing here imports jax, matplotlib or the JAX package audio_analysis_tpu.
 
 Float32 matrix products and convolutions run in full float32: TF32 keeps
 about three decimal digits, and low-precision products were measured to

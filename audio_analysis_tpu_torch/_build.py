@@ -1,11 +1,14 @@
 """
 Build and load the hand-written CUDA kernels in `csrc/`.
 
-The sources export a plain C interface (no PyTorch headers), so nvcc builds
-them in seconds into one shared library that is loaded with ctypes:
+The sources export a plain C interface (no PyTorch headers). nvcc compiles
+each source to an object, all of them at once in parallel processes, and
+links the objects into one shared library that is loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/aa_torch_kernels/libaa_torch_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c csrc/<name>.cu -o <name>.o        # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \
+         build/aa_torch_kernels/libaa_torch_kernels-<hash>.so *.o
 
 The build runs at first use. The file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library is never
@@ -29,10 +32,8 @@ from typing import Optional
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "aa_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -82,20 +83,37 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _run_all(cmds: list) -> tuple:
+    """Run the commands in parallel; (first non-zero exit code or 0, log)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    log, code = "", 0
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        code = code or proc.returncode
+    return code, log
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library if it is not built yet."""
     lib_path = library_path()
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    stem = lib_path.with_suffix(f".tmp{os.getpid()}")
+    objs = [f"{stem}.{src.stem}.o" for src in _sources()]
+    code, log = _run_all(
+        [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", obj] for src, obj in zip(_sources(), objs)]
+    )
+    if code == 0:
+        link_code, link_log = _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", f"{stem}.so", *objs]])
+        code, log = link_code, log + link_log
     lib_path.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib_path)
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if code != 0:
+        raise RuntimeError(f"nvcc failed ({code}):\n{log}")
+    os.replace(f"{stem}.so", lib_path)
     return lib_path
 
 

@@ -1,0 +1,150 @@
+"""
+The capture-bundle contract of the C++ recorder (cpp/recorder.hpp):
+
+    <bundle_root>/
+      meta.json          {"sample_rate_hz": int, "length_samples": int,
+                          "taps": ["name", ...]}
+      taps/<name>.wav    stereo PCM16 interleaved
+
+Reading and writing it, and the loaders that feed the engine: every tap
+zero-padded to one length N_max (a multiple of `pad_multiple`), planar
+(B, C=2, N_max), as float32 or, on the PCM16 fast path, int16 (the engine
+scales by 1/32768 on the device).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import List, Tuple
+
+import numpy as np
+
+from audio_analysis_tpu_torch.io import native
+from audio_analysis_tpu_torch.io.wav import (
+    duplicate_mono_to_stereo,
+    ensure_2d_channel_array,
+    load_wav_file,
+    wav_is_plain_pcm16,
+    write_wav_pcm16,
+)
+
+
+@dataclass(frozen=True)
+class BundleMeta:
+    sample_rate_hz: int
+    length_samples: int
+    taps: List[str]
+
+
+def read_bundle_meta(bundle_root: str | Path) -> BundleMeta:
+    meta = json.loads((Path(bundle_root) / "meta.json").read_text())
+    return BundleMeta(
+        sample_rate_hz=int(meta.get("sample_rate_hz", 48000)),
+        length_samples=int(meta.get("length_samples", 0)),
+        taps=list(meta.get("taps", [])),
+    )
+
+
+def write_bundle(bundle_root: str | Path, taps: dict[str, np.ndarray], sample_rate_hz: int) -> Path:
+    """Write a bundle in the recorder's format from (N,) or (N, 2) float32
+    taps (mono taps are written as stereo)."""
+    bundle_root = Path(bundle_root)
+    (bundle_root / "taps").mkdir(parents=True, exist_ok=True)
+    length = 0
+    for name, data in taps.items():
+        stereo = duplicate_mono_to_stereo(ensure_2d_channel_array(np.asarray(data)))
+        write_wav_pcm16(bundle_root / "taps" / f"{name}.wav", stereo, sample_rate_hz)
+        length = max(length, stereo.shape[0])
+    meta = {
+        "sample_rate_hz": int(sample_rate_hz),
+        "length_samples": int(length),
+        "taps": sorted(taps.keys()),
+    }
+    (bundle_root / "meta.json").write_text(json.dumps(meta, indent=2) + "\n")
+    return bundle_root
+
+
+def _round_up(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _tap_paths(bundle_root: Path, meta: BundleMeta) -> List[Path]:
+    return [bundle_root / "taps" / f"{t}.wav" for t in meta.taps]
+
+
+def _probe_lengths(paths: List[Path], meta: BundleMeta, pad_multiple: int) -> Tuple[List[int], int]:
+    """Every tap's frame count from its header (native probe), checked
+    against the bundle's rate, and the padded length N_max."""
+    lengths = []
+    for p in paths:
+        frames, _, rate = native.read_wav_info(p)
+        if rate != meta.sample_rate_hz:
+            raise ValueError(f"Tap {p} sample rate {rate} != bundle {meta.sample_rate_hz}")
+        lengths.append(frames)
+    return lengths, _round_up(max(lengths) if lengths else pad_multiple, pad_multiple)
+
+
+def load_bundle_batch(
+    bundle_root: str | Path, pad_multiple: int = 4096, num_threads: int = 8
+) -> Tuple[BundleMeta, np.ndarray, np.ndarray, List[str]]:
+    """(meta, (B, C=2, N_max) float32 batch zero-padded past each tap's
+    length, (B,) int32 lengths, tap names in batch order)."""
+    bundle_root = Path(bundle_root)
+    meta = read_bundle_meta(bundle_root)
+    paths = _tap_paths(bundle_root, meta)
+    if native.available():
+        _lengths, n_max = _probe_lengths(paths, meta, pad_multiple)
+        interleaved, length_arr = native.read_bundle(paths, n_max, 2, num_threads)
+        batch = np.ascontiguousarray(np.transpose(interleaved, (0, 2, 1)))
+        return meta, batch, length_arr.astype(np.int32), meta.taps
+    loaded = [load_wav_file(p, meta.sample_rate_hz) for p in paths]
+    lengths = np.array([a.samples.shape[0] for a in loaded], dtype=np.int32)
+    n_max = _round_up(int(lengths.max()) if len(loaded) else pad_multiple, pad_multiple)
+    batch = np.zeros((len(loaded), 2, n_max), dtype=np.float32)
+    for i, a in enumerate(loaded):
+        batch[i, :, : a.samples.shape[0]] = a.samples.T
+    return meta, batch, lengths, meta.taps
+
+
+def load_bundle_batch_i16(bundle_root: str | Path, pad_multiple: int = 4096, num_threads: int = 8):
+    """PCM16 fast path: (meta, (B, C=2, N_max) int16 batch, (B,) int32
+    lengths, names), no float conversion on the host. None when the native
+    library is missing or any tap is not plain PCM16."""
+    if not native.available():
+        return None
+    bundle_root = Path(bundle_root)
+    meta = read_bundle_meta(bundle_root)
+    paths = _tap_paths(bundle_root, meta)
+    _lengths, n_max = _probe_lengths(paths, meta, pad_multiple)
+    result = native.read_bundle_planar_i16(paths, n_max, 2, num_threads)
+    if result is None:
+        return None
+    batch_i16, length_arr = result
+    return meta, batch_i16, length_arr.astype(np.int32), meta.taps
+
+
+def open_bundle_chunks_i16(bundle_root: str | Path, pad_multiple: int = 4096, num_threads: int = 8):
+    """Chunked PCM16 fast path for pipelined decode: (meta, (B,) int32
+    lengths, names, n_max, loader), where loader(lo, hi) decodes taps
+    [lo, hi) into a planar (hi-lo, 2, n_max) int16 chunk. Every tap's
+    header is probed and vetted as plain PCM16 up front, so the padded
+    shape is fixed and loader() cannot fail on format mid-pipeline. None
+    when the native library is missing or any tap is not plain PCM16."""
+    if not native.available():
+        return None
+    bundle_root = Path(bundle_root)
+    meta = read_bundle_meta(bundle_root)
+    paths = _tap_paths(bundle_root, meta)
+    lengths, n_max = _probe_lengths(paths, meta, pad_multiple)
+
+    def loader(lo: int, hi: int):
+        result = native.read_bundle_planar_i16(paths[lo:hi], n_max, 2, num_threads)
+        if result is None:
+            raise IOError(f"Bundle taps [{lo}:{hi}) are not plain PCM16; use load_bundle_batch instead")
+        return result[0]
+
+    if not all(wav_is_plain_pcm16(p) for p in paths):
+        return None
+    return meta, np.asarray(lengths, np.int32), meta.taps, n_max, loader

@@ -9,12 +9,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. build the CUDA kernels from csrc/ with nvcc;
   2. kernel vs plain: each kernel's wrapper against its plain torch version
      on the card, at the shapes of the main path, with times (CUDA events,
-     median of several runs):
+     median of several runs), each beside its bound (the larger of the
+     bytes it must move at 3.35 TB/s and its operations at 67 TFLOP/s fp32)
+     and, where one PyTorch call computes the same function, that call's
+     time (`library_ms`; the port never calls it):
        K1 Schroeder EDC: 64 rows x 2^20 with mixed lengths and 16 rows x
           (2^20 - 3*4096) (no multiple of 16384); within 0.02 dB above
-          -100 dB, exactly 0 past `length`, 0 dB at index 0;
+          -100 dB, exactly 0 past `length`, 0 dB at index 0; timed at the
+          main path's 16 and 48 rows x 2^20 (no single PyTorch call);
        K2 STFT magnitude: 16 rows x 2^20 at (4096, 512) and at (8192, 512)
-          with the modal k_out; max |err| / max(ref) < 1e-5;
+          with the modal k_out; max |err| / max(ref) < 1e-5; library call
+          torch.stft(center=False, Hann) + abs;
   3. write a deterministic 16-tap stereo bundle of 2^20 samples per tap
      (bench.py's recipe) under build/;
   4. drive `bundle --no-plots` of the port through its CLI entry, 8 taps
@@ -32,8 +37,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and third-octave bands, every chunk decoded and uploaded again, and
      the device's busy share of a warm run.
 
-The last lines are the kernels' JSON, the card's name and power limit, and
-{"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
+The port's path must not load jax, matplotlib or the JAX package
+(audio_analysis_tpu). The last lines are the kernels' JSON, the card's name
+and power limit, and {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
 script exits non-zero at once.
 """
 
@@ -68,6 +74,36 @@ def card_line() -> str:
     ).stdout.strip()
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores, the same sheet
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(least ms the card could take, "bytes" or "operations")."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ptxas_report(build_log: str) -> dict:
+    """Registers, spill bytes and static shared memory of every kernel
+    instance, from the `-Xptxas -v` lines of the build log."""
+    report, name = {}, None
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            m = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", entry.group(1))
+            name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else entry.group(1)
+            report[name] = {}
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[name].update(spill_store_bytes=int(stores), spill_load_bytes=int(loads))
+        elif name and "registers" in line:
+            report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return report
+
+
 def time_ms(fn, reps: int = 7) -> float:
     """Median device time of one call, CUDA events around each call."""
     import torch
@@ -89,7 +125,8 @@ def time_ms(fn, reps: int = 7) -> float:
 
 
 def check_edc(torch, edc, dev, g):
-    """K1 against its plain version; returns (max dB error, ms, plain ms)."""
+    """K1 against its plain version; returns (max dB error, per-shape
+    timings)."""
     worst = 0.0
     for rows, n in ((64, N), (16, N - 3 * 4096)):
         t = torch.arange(n, dtype=torch.float32)
@@ -110,23 +147,27 @@ def check_edc(torch, edc, dev, g):
         worst = max(worst, err)
         log(f"K1 edc ({rows}, {n}): max err {err:.3g} dB above -100 dB; 0 past length; 0 dB at index 0")
     # the main path's calls per chunk of 8 stereo taps: 16 broadband rows
-    # and 48 three-band rows
-    ms = plain_ms = 0.0
+    # and 48 three-band rows. Bound: the rows read once, the dB plane
+    # written once; about 4 operations a sample (square, add, log, scale).
+    shapes = []
     for rows in (16, 48):
         xr = torch.randn(rows, N, device=dev) * 0.01
         lr = torch.full((rows,), N, dtype=torch.int32, device=dev)
         k = time_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
         p = time_ms(lambda: edc.schroeder_edc_db_plain(xr, lr))
-        log(f"K1 edc ({rows}, {N}): kernel {k:.3f} ms, plain {p:.3f} ms")
-        ms += k
-        plain_ms += p
-    return worst, ms, plain_ms
+        b, by = bound(rows * N * 4 * 2 + rows * 4, rows * N * 4.0)
+        shapes.append({"shape": [rows, N], "ms": k, "plain_ms": p, "bound_ms": b, "bound_by": by,
+                       "library_ms": None})
+        log(f"K1 edc ({rows}, {N}): kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
+    return worst, shapes
 
 
 def check_stft(torch, stft, dev, g, k_out):
-    """K2 against its plain version; returns (max abs err, ms, plain ms)."""
+    """K2 against its plain version; returns (max abs err, per-shape
+    timings)."""
     worst = 0.0
-    ms = plain_ms = 0.0
+    shapes = []
     x = torch.randn(16, N, generator=g).to(dev)
     lengths = torch.full((16,), N, dtype=torch.int32, device=dev)
     lengths[3] = 500_000
@@ -140,15 +181,45 @@ def check_stft(torch, stft, dev, g, k_out):
         if not (got.shape == ref.shape and rel < 1e-5):
             raise AssertionError(f"STFT kernel disagrees at ({n_fft}, {hop}): rel {rel}")
         worst = max(worst, err)
+        window = stft._window(n_fft, True, x.device)
         k = time_ms(lambda: stft.stft_magnitude_cuda(x, lengths, n_fft, hop, True, floor_lin, kk))
         p = time_ms(lambda: stft.stft_magnitude_plain(x, lengths, n_fft, hop, True, floor_lin, kk))
-        ms += k
-        plain_ms += p
+        lib = time_ms(
+            lambda: torch.stft(x, n_fft, hop, window=window, center=False, return_complex=True).abs()
+        )
+        # bytes: signal, lengths, window and twiddle table read once, the
+        # magnitude plane written once; operations: 2.5 n_fft log2 n_fft a
+        # frame, the usual count of a real FFT
+        rows, frames, bins = got.shape
+        nbytes = x.numel() * 4 + rows * 4 + n_fft * 4 + (n_fft // 2 + 1) * 8 + got.numel() * 4
+        b, by = bound(nbytes, rows * frames * 2.5 * n_fft * math.log2(n_fft))
+        shapes.append({"shape": [rows, N, n_fft, hop, bins], "ms": k, "plain_ms": p, "bound_ms": b,
+                       "bound_by": by, "library_ms": lib})
         log(
             f"K2 stft (16, {N}) n_fft={n_fft} hop={hop} k_out={kk}: shape {tuple(got.shape)} "
-            f"max err {err:.3g} (rel {rel:.3g}); kernel {k:.3f} ms, plain {p:.3f} ms"
+            f"max err {err:.3g} (rel {rel:.3g}); kernel {k:.3f} ms, plain {p:.3f} ms, "
+            f"torch.stft+abs {lib:.3f} ms ({lib / k:.2f}x the kernel's speed), "
+            f"bound {b:.3f} ms ({by}), {b / k:.0%} of bound"
         )
-    return worst, ms, plain_ms
+    return worst, shapes
+
+
+def kernel_entry(name, source, replaces, launch_count, err, shapes) -> dict:
+    """One kernel of the kernels line: times, bounds and library times summed
+    over its calls in one chunk, with each call's numbers under `shapes`."""
+    libs = [sh["library_ms"] for sh in shapes]
+    ms = sum(sh["ms"] for sh in shapes)
+    bound_ms = sum(sh["bound_ms"] for sh in shapes)
+    kinds = {sh["bound_by"] for sh in shapes}
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launch_count, "max_abs_err": err,
+        "ms": ms, "plain_ms": sum(sh["plain_ms"] for sh in shapes),
+        "bound_ms": bound_ms, "bound_by": kinds.pop() if len(kinds) == 1 else "mixed",
+        "bound_share": bound_ms / ms,
+        "library_ms": None if None in libs else sum(libs),
+        "shapes": shapes,
+    }
 
 
 # ------------------------------------------------------------- bundle ----
@@ -370,16 +441,16 @@ def main() -> int:
     lib_path = _build.build()
     _build.library()
     phases["build_s"] = time.perf_counter() - t0
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+    phases["ptxas"] = ptxas_report(lib_path.with_suffix(".log").read_text())
+    for name, info in phases["ptxas"].items():
+        log(f"ptxas {name}: {info}")
 
     # 2. kernels vs plain versions on the card
     t0 = time.perf_counter()
     g = torch.Generator().manual_seed(0)
     k_out = modal_tables(EngineConfig())[2]
-    edc_err, edc_ms, edc_plain_ms = check_edc(torch, edc, dev, g)
-    stft_err, stft_ms, stft_plain_ms = check_stft(torch, stft, dev, g, k_out)
+    edc_err, edc_shapes = check_edc(torch, edc, dev, g)
+    stft_err, stft_shapes = check_stft(torch, stft, dev, g, k_out)
     phases["kernel_check_s"] = time.perf_counter() - t0
 
     # 3. the bundle
@@ -441,27 +512,26 @@ def main() -> int:
     phases["blocks_ms"] = block_times(torch, analyze_batch, EngineConfig, root, dev)
     phases["other_loads"] = other_loads(torch, cli_main, root, dev)
 
-    if "jax" in sys.modules or "matplotlib" in sys.modules:
-        raise AssertionError("the port's path imported jax or matplotlib")
+    banned = sorted(
+        m for m in sys.modules
+        if m in ("jax", "matplotlib", "audio_analysis_tpu")
+        or m.startswith(("jax.", "matplotlib.", "audio_analysis_tpu."))
+    )
+    if banned:
+        raise AssertionError(f"the port's path imported {banned}")
     log("phases " + json.dumps(phases))
+
     kernels = [
-        {
-            "name": "schroeder_edc_db", "route": "cuda",
-            "source": "audio_analysis_tpu_torch/csrc/edc.cu",
-            "replaces": "audio_analysis_tpu/ops/pallas_kernels.py:143",
-            "launches": launches["edc"], "max_abs_err": edc_err,
-            "ms": edc_ms, "plain_ms": edc_plain_ms,
-        },
-        {
-            "name": "stft_magnitude", "route": "cuda",
-            "source": "audio_analysis_tpu_torch/csrc/stft.cu",
-            "replaces": "audio_analysis_tpu/ops/pallas_stft.py:219",
-            "launches": launches["stft"], "max_abs_err": stft_err,
-            "ms": stft_ms, "plain_ms": stft_plain_ms,
-        },
+        kernel_entry("schroeder_edc_db", "audio_analysis_tpu_torch/csrc/edc.cu",
+                     "audio_analysis_tpu/ops/pallas_kernels.py:143", launches["edc"], edc_err, edc_shapes),
+        kernel_entry("stft_magnitude", "audio_analysis_tpu_torch/csrc/stft.cu",
+                     "audio_analysis_tpu/ops/pallas_stft.py:219", launches["stft"], stft_err, stft_shapes),
     ]
     for k in kernels:
-        if not all(math.isfinite(k[f]) for f in ("max_abs_err", "ms", "plain_ms")):
+        numbers = [k["max_abs_err"], k["ms"], k["plain_ms"], k["bound_ms"]]
+        if k["library_ms"] is not None:
+            numbers.append(k["library_ms"])
+        if not all(math.isfinite(v) for v in numbers):
             raise AssertionError(f"non-finite measurement for {k['name']}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -54,13 +54,7 @@ def test_edc_kernel_matches_plain(dev, rows, n):
     assert bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())
 
 
-@pytest.mark.parametrize(
-    "n_fft,hop,k_out", [(4096, 512, None), (8192, 512, 3415), (4096, 1024, None), (256, 64, 100), (16384, 512, None)]
-)
-def test_stft_kernel_matches_plain(dev, n_fft, hop, k_out):
-    g = torch.Generator().manual_seed(n_fft + hop)
-    x = torch.randn(4, 1 << 18, generator=g).to(dev)
-    lengths = torch.tensor([1 << 18, 100000, n_fft, n_fft - 1], dtype=torch.int32, device=dev)
+def _assert_stft_matches_plain(x, lengths, n_fft, hop, k_out):
     before = stft.STFT_KERNEL.launches
     res = stft.stft_magnitude(x, lengths, n_fft, hop, True, 1e-6, k_out)
     assert stft.STFT_KERNEL.launches == before + 1
@@ -68,6 +62,49 @@ def test_stft_kernel_matches_plain(dev, n_fft, hop, k_out):
     assert res.mag.shape == ref.shape
     assert ((res.mag - ref).abs().max() / ref.abs().max()).item() < 1e-5
     assert torch.equal(res.mag == 0, ref == 0)
+
+
+# every power-of-two n_fft the kernel takes (one template instance each),
+# the main path's shapes, hops that are not a multiple of 4 (odd hops put
+# every other frame start off 8-byte alignment: the scalar load path), and
+# k_out of 1 and of n_fft/2 + 1
+@pytest.mark.parametrize(
+    "n_fft,hop,k_out",
+    [
+        (256, 64, 100),
+        (256, 63, 129),
+        (512, 96, None),
+        (1024, 250, 1),
+        (2048, 333, None),
+        (4096, 512, None),
+        (4096, 1024, None),
+        (4096, 509, 2049),
+        (8192, 512, 3415),
+        (8192, 777, 1),
+        (16384, 512, None),
+        (16384, 1001, 5),
+    ],
+)
+def test_stft_kernel_matches_plain(dev, n_fft, hop, k_out):
+    g = torch.Generator().manual_seed(n_fft + hop)
+    x = torch.randn(4, 1 << 18, generator=g).to(dev)
+    # the last two lengths cut frames: only frames wholly inside survive
+    lengths = torch.tensor([1 << 18, 100000, n_fft, n_fft - 1], dtype=torch.int32, device=dev)
+    _assert_stft_matches_plain(x, lengths, n_fft, hop, k_out)
+
+
+@pytest.mark.parametrize("view", ["offset", "strided"])
+@pytest.mark.parametrize("n_fft,hop", [(4096, 512), (8192, 512), (256, 64)])
+def test_stft_kernel_takes_views(dev, view, n_fft, hop):
+    """A contiguous view one float into its storage (rows off 8-byte
+    alignment) and a strided view (copied by the wrapper)."""
+    g = torch.Generator().manual_seed(7)
+    rows, n = 3, 50_001
+    base = torch.randn(rows * n + 1, generator=g).to(dev)
+    x = base[1:].view(rows, n) if view == "offset" else base[: rows * n].view(n, rows).t()
+    assert x.is_contiguous() == (view == "offset")
+    lengths = torch.tensor([n, 30_000, 20_000], dtype=torch.int32, device=dev)
+    _assert_stft_matches_plain(x, lengths, n_fft, hop, None)
 
 
 def test_engine_on_card_matches_cpu(dev):
