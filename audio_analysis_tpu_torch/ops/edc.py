@@ -65,12 +65,14 @@ def schroeder_edc_db_cuda(
     if rows == 0 or n == 0:
         return out.reshape(samples.shape)
     lib = _build.library()
-    tile = lib.aa_edc_tile_size()
-    tile_sums = torch.empty((rows, -(-n // tile)), dtype=torch.float32, device=x.device)
+    # scratch: each tile's flagged 64-bit total, then the kernel's ticket
+    # counter (zeroed by the C entry on the stream)
+    tiles = -(-n // lib.aa_edc_tile_size())
+    scratch = torch.empty(2 * rows * tiles + 1, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.aa_edc_db(
-            x.data_ptr(), lengths.data_ptr(), tile_sums.data_ptr(), out.data_ptr(),
+            x.data_ptr(), lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             rows, n, float(edc_epsilon), float(edc_floor_db), stream,
         )
     _build.check(code, "edc kernel")

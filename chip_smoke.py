@@ -13,10 +13,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      bytes it must move at 3.35 TB/s and its operations at 67 TFLOP/s fp32)
      and, where one PyTorch call computes the same function, that call's
      time (`library_ms`; the port never calls it):
-       K1 Schroeder EDC: 64 rows x 2^20 with mixed lengths and 16 rows x
-          (2^20 - 3*4096) (no multiple of 16384); within 0.02 dB above
-          -100 dB, exactly 0 past `length`, 0 dB at index 0; timed at the
-          main path's 16 and 48 rows x 2^20 (no single PyTorch call);
+       K1 Schroeder EDC: 64 rows x 2^20 with mixed lengths, 16 rows x
+          (2^20 - 3*4096) (no multiple of 16384) and the main path's 16 and
+          48 rows x 2^20; within 0.02 dB above -100 dB, exactly 0 past
+          `length`, 0 dB at index 0, two calls bit-identical, and no spills
+          in ptxas' report; timed at 16 and 48 rows x 2^20, a single call
+          with its wrapper and a call within 20 back to back (no single
+          PyTorch call; torch.cumsum of the squared plane, the scan core
+          alone, is logged beside it);
        K2 STFT magnitude: 16 rows x 2^20 at (4096, 512) and at (8192, 512)
           with the modal k_out; max |err| / max(ref) < 1e-5; library call
           torch.stft(center=False, Hann) + abs;
@@ -121,7 +125,49 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def time_back_to_back_ms(fn, calls: int = 20, reps: int = 3) -> float:
+    """Median device time of one call within a run of `calls` calls
+    enqueued back to back (CUDA events around the run): the host's time to
+    enqueue each call hides behind the device's work on the one before."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 # ------------------------------------------------------------ kernels ----
+
+
+def edc_error(torch, edc, x, lengths) -> float:
+    """K1 against its plain version on (x, lengths): max dB error above
+    -100 dB; raises unless it is within 0.02 dB, the curve is exactly 0 past
+    `length` and exactly 0 dB at index 0, and a second call is bit-identical
+    to the first."""
+    rows, n = x.shape
+    got = edc.schroeder_edc_db_cuda(x, lengths)
+    again = edc.schroeder_edc_db_cuda(x, lengths)
+    ref = edc.schroeder_edc_db_plain(x, lengths)
+    torch.cuda.synchronize()
+    past = torch.arange(n, device=x.device)[None, :] >= lengths[:, None]
+    usable = (ref > -100.0) & ~past
+    err = (got - ref).abs()[usable].max().item()
+    if not (err <= 0.02 and bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())):
+        raise AssertionError(f"EDC kernel disagrees at ({rows}, {n}): {err} dB")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"EDC kernel: two calls at ({rows}, {n}) differ")
+    log(f"K1 edc ({rows}, {n}): max err {err:.3g} dB above -100 dB; 0 past length; "
+        "0 dB at index 0; two calls bit-identical")
+    return err
 
 
 def check_edc(torch, edc, dev, g):
@@ -135,31 +181,29 @@ def check_edc(torch, edc, dev, g):
         lengths = torch.randint(1, n + 1, (rows,), generator=g, dtype=torch.int32)
         lengths[0] = n
         x = torch.where(torch.arange(n) < lengths[:, None], x, 0.0).to(dev)
-        lengths = lengths.to(dev)
-        got = edc.schroeder_edc_db_cuda(x, lengths)
-        ref = edc.schroeder_edc_db_plain(x, lengths)
-        torch.cuda.synchronize()
-        usable = ref > -100.0
-        err = (got - ref).abs()[usable].max().item()
-        past = torch.arange(n, device=dev)[None, :] >= lengths[:, None]
-        if not (err <= 0.02 and bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())):
-            raise AssertionError(f"EDC kernel disagrees at ({rows}, {n}): {err} dB")
-        worst = max(worst, err)
-        log(f"K1 edc ({rows}, {n}): max err {err:.3g} dB above -100 dB; 0 past length; 0 dB at index 0")
+        worst = max(worst, edc_error(torch, edc, x, lengths.to(dev)))
     # the main path's calls per chunk of 8 stereo taps: 16 broadband rows
     # and 48 three-band rows. Bound: the rows read once, the dB plane
     # written once; about 4 operations a sample (square, add, log, scale).
+    # torch.cumsum over the squared plane is the library's time for the
+    # scan core alone; no single call computes the EDC (library_ms null).
     shapes = []
     for rows in (16, 48):
-        xr = torch.randn(rows, N, device=dev) * 0.01
+        t = torch.arange(N, dtype=torch.float32)
+        xr = (0.01 * torch.randn(rows, N, generator=g) * torch.exp(-t / 30000.0)).to(dev)
         lr = torch.full((rows,), N, dtype=torch.int32, device=dev)
+        worst = max(worst, edc_error(torch, edc, xr, lr))
         k = time_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
+        k_run = time_back_to_back_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
         p = time_ms(lambda: edc.schroeder_edc_db_plain(xr, lr))
+        energy = xr * xr
+        scan = time_ms(lambda: torch.cumsum(energy, dim=-1))
         b, by = bound(rows * N * 4 * 2 + rows * 4, rows * N * 4.0)
         shapes.append({"shape": [rows, N], "ms": k, "plain_ms": p, "bound_ms": b, "bound_by": by,
-                       "library_ms": None})
-        log(f"K1 edc ({rows}, {N}): kernel {k:.3f} ms, plain {p:.3f} ms, "
-            f"bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
+                       "library_ms": None, "cumsum_ms": scan, "ms_back_to_back": k_run})
+        log(f"K1 edc ({rows}, {N}): torch.cumsum of the squared plane (scan core only) {scan:.3f} ms")
+        log(f"K1 edc ({rows}, {N}): kernel {k:.3f} ms ({k_run:.3f} ms a call back to back), "
+            f"plain {p:.3f} ms, bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
     return worst, shapes
 
 
@@ -444,6 +488,9 @@ def main() -> int:
     phases["ptxas"] = ptxas_report(lib_path.with_suffix(".log").read_text())
     for name, info in phases["ptxas"].items():
         log(f"ptxas {name}: {info}")
+    edc_ptxas = phases["ptxas"].get("edc_kernel")
+    if not edc_ptxas or edc_ptxas.get("spill_store_bytes") or edc_ptxas.get("spill_load_bytes"):
+        raise AssertionError(f"K1 edc_kernel missing from ptxas' report or spilling: {edc_ptxas}")
 
     # 2. kernels vs plain versions on the card
     t0 = time.perf_counter()

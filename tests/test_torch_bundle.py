@@ -64,7 +64,14 @@ def _run_jax(root: Path, subdir: str, mono: bool) -> Path:
 @pytest.fixture(scope="module", params=["stereo", "mono"])
 def reports(request, tmp_path_factory):
     # both sides take the same loader branch: the pipelined PCM16 path when
-    # the native decoder is built (make -C cpp), the float32 batch otherwise
+    # the native decoder is built (make -C cpp), the float32 batch otherwise.
+    # Each binding remembers its first load attempt for the life of the
+    # process, so both are (re)tried here, after any build that happened
+    # since this process first looked.
+    from audio_analysis_tpu.io import native as jax_native
+    from audio_analysis_tpu_torch.io import native as torch_native
+
+    assert torch_native.ensure_built() == jax_native.ensure_built()
     root = _write_bench_bundle(tmp_path_factory.mktemp("bundle"), TAPS, N)
     mono = request.param == "mono"
     args = ["bundle", "--input", str(root), "--no-plots", "--device", "cpu",

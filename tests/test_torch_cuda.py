@@ -40,18 +40,51 @@ def _decays(rows, n, seed):
     return torch.where(torch.arange(n) < lengths[:, None], x, 0.0), lengths
 
 
-@pytest.mark.parametrize("rows,n", [(64, 1 << 20), (16, (1 << 20) - 3 * 4096), (3, 4097), (2, 5)])
-def test_edc_kernel_matches_plain(dev, rows, n):
-    x, lengths = _decays(rows, n, rows + n)
-    x, lengths = x.to(dev), lengths.to(dev)
+def _assert_edc_matches_plain(x, lengths):
     before = edc.EDC_KERNEL.launches
     got = edc.schroeder_edc_db(x, lengths).edc_db
     assert edc.EDC_KERNEL.launches == before + 1
     ref = edc.schroeder_edc_db_plain(x, lengths)
-    usable = ref > -100.0
-    assert (got - ref).abs()[usable].max().item() <= 0.02
-    past = torch.arange(n, device=dev)[None, :] >= lengths[:, None]
+    n = x.shape[-1]
+    past = torch.arange(n, device=x.device)[None, :] >= lengths[:, None]
+    usable = (ref > -100.0) & ~past
+    if bool(usable.any()):
+        assert (got - ref).abs()[usable].max().item() <= 0.02
     assert bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())
+    return got
+
+
+# the octave and third-octave bands of one stereo tap are 18 and 52 rows
+@pytest.mark.parametrize(
+    "rows,n",
+    [(64, 1 << 20), (16, (1 << 20) - 3 * 4096), (18, 1 << 20), (52, 1 << 20), (3, 4097), (2, 5), (3, 1)],
+)
+def test_edc_kernel_matches_plain(dev, rows, n):
+    x, lengths = _decays(rows, n, rows + n)
+    _assert_edc_matches_plain(x.to(dev), lengths.to(dev))
+
+
+def test_edc_kernel_edge_rows(dev):
+    """Lengths 0 and 1, an all-zero row (the eps path), and a fast decay
+    whose tail is about 1e-12 of the total (suffixes never formed as
+    total - prefix)."""
+    n = 3 * 4096 + 7
+    x, _ = _decays(5, n, 99)
+    t = torch.arange(n, dtype=torch.float32)
+    x[3] = torch.randn(n, generator=torch.Generator().manual_seed(4)) * torch.exp(-t / (n / 13.8))
+    x[4] = 0.0
+    lengths = torch.tensor([0, 1, n, n, n], dtype=torch.int32)
+    x = torch.where(torch.arange(n) < lengths[:, None], x, 0.0)
+    got = _assert_edc_matches_plain(x.to(dev), lengths.to(dev))
+    assert bool((got[4] == 0).all())
+
+
+def test_edc_kernel_two_calls_bit_identical(dev):
+    x, lengths = _decays(48, 1 << 20, 11)
+    x, lengths = x.to(dev), lengths.to(dev)
+    a = edc.schroeder_edc_db(x, lengths).edc_db
+    b = edc.schroeder_edc_db(x, lengths).edc_db
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _assert_stft_matches_plain(x, lengths, n_fft, hop, k_out):
