@@ -10,8 +10,9 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
             magnitude, csrc/stft.cu)
   engine/   the fused per-chunk analysis (analyze_batch) and the pipelined
             bundle host entry (analyze_bundle_pipelined)
-  report/   the engine bundle report (per-tap markdown + bundle_metrics.json)
-  cli/      `python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots`
+  report/   the engine bundle report (per-tap markdown + bundle_metrics.json),
+            the run-to-run comparison and the bundle watcher
+  cli/      `python -m audio_analysis_tpu_torch.cli {bundle,batch,watch,compare}`
   io/       WAV and capture-bundle I/O (numpy, scipy, and a ctypes binding of
             the repo's C++ decoder cpp/audioio.cpp)
   csrc/     CUDA sources, built with nvcc at first use (_build.py)

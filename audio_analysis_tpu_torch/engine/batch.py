@@ -90,7 +90,7 @@ def modal_tables(config: EngineConfig) -> Tuple[np.ndarray, np.ndarray, int | No
 
 
 @lru_cache(maxsize=4)
-def _device_tables(config: EngineConfig, n: int, device: torch.device) -> Dict[str, torch.Tensor]:
+def _device_tables(config: EngineConfig, n: int, device: torch.device) -> Dict:
     """The constant tables of one (config, N) on the device, uploaded once:
     an upload from pageable host memory would stall every later chunk's
     dispatch on the compute stream."""
@@ -103,13 +103,33 @@ def _device_tables(config: EngineConfig, n: int, device: torch.device) -> Dict[s
         "freqs": torch.from_numpy(freqs),
         "sel": torch.from_numpy((freqs >= f_min) & (freqs <= f_max)),
     }
+    groups = []
+    num_bands = 0
     if config.run_bands:
-        tables["band_masks"] = torch.from_numpy(band_masks(config, n))
+        masks = band_masks(config, n)
+        num_bands = masks.shape[0]
+        factors = fftmask.band_decimation_factors(masks, n) if config.bands_decimate else ()
+        if any(k > 1 for k in factors):
+            # one cropped mask table per distinct factor, ascending, and the
+            # permutation that puts the groups' columns back in band order
+            by_factor: Dict[int, list] = {}
+            for band, k in enumerate(factors):
+                by_factor.setdefault(k, []).append(band)
+            groups = [(k, fftmask.crop_half_masks(masks[bands], n, k)) for k, bands in sorted(by_factor.items())]
+            order = [band for _k, bands in sorted(by_factor.items()) for band in bands]
+            tables["band_order"] = torch.from_numpy(np.argsort(order))
+        else:
+            tables["band_masks"] = torch.from_numpy(masks)
     if config.run_modal:
         bin_matrix, nonempty, _k_out = modal_tables(config)
         tables["modal_bins_t"] = torch.from_numpy(np.ascontiguousarray(bin_matrix.T))
         tables["modal_nonempty"] = torch.from_numpy(nonempty)
-    return {k: v.to(device) for k, v in tables.items()}
+    out: Dict = {k: v.to(device) for k, v in tables.items()}
+    # (factor, cropped mask table) per decimation group (empty at full
+    # rate), and the band count
+    out["band_groups"] = tuple((k, torch.from_numpy(m).to(device)) for k, m in groups)
+    out["num_bands"] = num_bands
+    return out
 
 
 def _fit_metrics(fit: dbfit.DecayFit, prefix: str) -> Dict[str, torch.Tensor]:
@@ -123,14 +143,14 @@ def _fit_metrics(fit: dbfit.DecayFit, prefix: str) -> Dict[str, torch.Tensor]:
     }
 
 
-def _bands(samples, start, length, masks, config: EngineConfig) -> Dict[str, torch.Tensor]:
-    """Band filterbank, per-band alignment at the broadband start, EDC and
-    the T30/T20/EDT fits for (..., C, N) samples -> (..., C, bands)."""
-    sr = config.sample_rate_hz
-    banded = fftmask.apply_band_masks(samples, masks)  # (..., C, bands, N)
+def _band_fits(banded, start, length, factor: int, config: EngineConfig) -> Dict[str, torch.Tensor]:
+    """Per-band alignment at the broadband start, EDC and the T30/T20/EDT
+    fits of a (..., C, bands, N/factor) band plane -> (..., C, bands)."""
     plane = banded.shape[:-1]
+    if factor > 1:
+        start, length = start // factor, length // factor
     aligned = trim.shift_to(banded, start[..., None].expand(plane), length[..., None].expand(plane))
-    del banded
+    del banded  # the caller passes the plane without keeping it
     curve = edc.schroeder_edc_db(
         aligned.samples, aligned.length, config.edc_epsilon, config.edc_floor_db
     )
@@ -141,11 +161,36 @@ def _bands(samples, start, length, masks, config: EngineConfig) -> Dict[str, tor
         ("band_edt", config.edt_range_db),
     ):
         fit = dbfit.fit_decay_slope_over_db_range(
-            curve.edc_db, curve.length, range_db, config.fit_lower_limit_db, sr
+            curve.edc_db, curve.length, range_db, config.fit_lower_limit_db,
+            config.sample_rate_hz / factor,
         )
         res[f"{name}_rt60"] = fit.rt60_seconds
         res[f"{name}_ok"] = fit.ok
     return res
+
+
+def _bands(samples, start, length, tables, config: EngineConfig) -> Dict[str, torch.Tensor]:
+    """Band filterbank (the filter sees the full signal, then trims) and
+    the band fits for (..., C, N) samples -> (..., C, bands).
+
+    With decimation groups (`config.bands_decimate`), one forward transform
+    is shared; each group of bands with the same factor k is inverse-
+    transformed at N/k, aligned at start // k and fitted at sr / k, and the
+    groups' columns are put back in band order."""
+    n = samples.shape[-1]
+    if not tables["band_groups"]:
+        return _band_fits(fftmask.apply_band_masks(samples, tables["band_masks"]), start, length, 1, config)
+    kind, spectrum = fftmask.full_band_spectrum(samples)
+    per_group = [
+        _band_fits(fftmask.banded_from_spectrum(kind, spectrum, masks, n, k), start, length, k, config)
+        for k, masks in tables["band_groups"]
+    ]
+    del spectrum
+    order = tables["band_order"]
+    return {
+        key: torch.cat([res[key] for res in per_group], dim=-1).index_select(-1, order)
+        for key in per_group[0]
+    }
 
 
 def analyze_batch(
@@ -202,19 +247,16 @@ def analyze_batch(
 
     # ---- rt60 bands: the filter sees the full signal, then trims ----
     if config.run_bands:
-        if config.bands_decimate:
-            raise NotImplementedError("bands_decimate is not yet ported")
-        masks = tables["band_masks"]
-        if masks.shape[0] > 3:
+        if tables["num_bands"] > 3:
             # octave/third-octave: the (C, bands, N) filterbank plane is the
             # memory high-water mark, so taps go one at a time
             per_tap = [
-                _bands(samples[i], aligned.start_index[i], lengths_bc[i], masks, config)
+                _bands(samples[i], aligned.start_index[i], lengths_bc[i], tables, config)
                 for i in range(b)
             ]
             out.update({k: torch.stack([r[k] for r in per_tap]) for k in per_tap[0]})
         else:
-            out.update(_bands(samples, aligned.start_index, lengths_bc, masks, config))
+            out.update(_bands(samples, aligned.start_index, lengths_bc, tables, config))
 
     # ---- frequency response diagnostics ----
     freqs, sel = tables["freqs"], tables["sel"]

@@ -6,6 +6,7 @@ from audio_analysis_tpu_torch.io.bundle import (  # noqa: F401
     BundleMeta,
     load_bundle_batch,
     load_bundle_batch_i16,
+    materialize_bundle_view,
     open_bundle_chunks_i16,
     read_bundle_meta,
     write_bundle,

@@ -15,6 +15,7 @@ scales by 1/32768 on the device).
 from __future__ import annotations
 
 import json
+import shutil
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Tuple
@@ -23,9 +24,11 @@ import numpy as np
 
 from audio_analysis_tpu_torch.io import native
 from audio_analysis_tpu_torch.io.wav import (
+    _read_wav_raw,
     duplicate_mono_to_stereo,
     ensure_2d_channel_array,
     load_wav_file,
+    wav_header_info,
     wav_is_plain_pcm16,
     write_wav_pcm16,
 )
@@ -63,6 +66,113 @@ def write_bundle(bundle_root: str | Path, taps: dict[str, np.ndarray], sample_ra
         "taps": sorted(taps.keys()),
     }
     (bundle_root / "meta.json").write_text(json.dumps(meta, indent=2) + "\n")
+    return bundle_root
+
+
+def materialize_bundle_view(
+    wav_paths: List[str | Path],
+    bundle_root: str | Path,
+    expected_sample_rate_hz: int | None = None,
+) -> Path:
+    """
+    Turn loose WAV files into a bundle view: `bundle_root/meta.json` +
+    `bundle_root/taps/<stem>.wav` symlinks to the originals (copies where
+    the filesystem refuses symlinks), marked `"view": true` in meta.json.
+    Every bundle tool then works on arbitrary IR collections (`bundle
+    --no-plots`, `--compare`, `watch`; symlinks stat through to the
+    originals, so re-rendering an input re-triggers analysis).
+
+    Tap order is the input order; duplicate stems get `_2`, `_3`...
+    suffixes. All inputs must share one sample rate (the engine analyses
+    the batch at a single rate; `expected_sample_rate_hz` enforces one).
+    A bundle that is not a view is never overwritten, and taps of an
+    earlier view that the new input set does not hold are removed.
+    """
+    paths = [Path(p) for p in wav_paths]
+    if not paths:
+        raise ValueError("materialize_bundle_view: no input WAV files given")
+    for p in paths:
+        if not p.is_file():
+            raise ValueError(f"Input WAV not found: {p}")
+
+    def probe(path: Path) -> Tuple[int, int]:
+        """(frames, sample_rate) without decoding PCM where possible."""
+        if native.available():
+            frames, _ch, rate = native.read_wav_info(path)
+            return int(frames), int(rate)
+        info = wav_header_info(path)
+        if info is not None:
+            frames, _ch, rate = info
+            return int(frames), int(rate)
+        # unparseable header: the decoder gives its error (or reads an
+        # exotic but valid file the header walk refused)
+        rate, raw = _read_wav_raw(path)
+        return int(np.asarray(raw).shape[0]), int(rate)
+
+    frames_rates = [probe(p) for p in paths]
+    rates = {rate for _f, rate in frames_rates}
+    if len(rates) > 1:
+        raise ValueError(
+            f"Inputs mix sample rates {sorted(rates)} — the engine analyses "
+            "one batch at one rate; split the files by rate"
+        )
+    rate = rates.pop()
+    if expected_sample_rate_hz is not None and rate != int(expected_sample_rate_hz):
+        raise ValueError(
+            f"Inputs are {rate} Hz, expected {int(expected_sample_rate_hz)} Hz"
+        )
+
+    names: List[str] = []
+    used = set()
+    for p in paths:
+        name = p.stem
+        k = 2
+        while name in used:
+            name = f"{p.stem}_{k}"
+            k += 1
+        used.add(name)
+        names.append(name)
+
+    bundle_root = Path(bundle_root)
+    meta_path = bundle_root / "meta.json"
+    if meta_path.is_file():
+        try:
+            existing = json.loads(meta_path.read_text())
+        except (OSError, ValueError):
+            existing = None
+        if not (isinstance(existing, dict) and existing.get("view")):
+            raise ValueError(
+                f"{bundle_root} already holds a bundle that is not a batch "
+                "view - refusing to overwrite it; choose an empty --output"
+            )
+    taps_dir = bundle_root / "taps"
+    taps_dir.mkdir(parents=True, exist_ok=True)
+    for name, src in zip(names, paths):
+        dst = taps_dir / f"{name}.wav"
+        target = src.resolve()
+        if dst.is_symlink() or dst.exists():
+            if dst.is_symlink() and dst.resolve() == target:
+                continue  # already points at this input
+            dst.unlink()
+        try:
+            dst.symlink_to(target)
+        except OSError:
+            shutil.copyfile(target, dst)
+
+    # a stale taps/<x>.wav that meta.json no longer lists would read as a
+    # phantom tap to anything globbing the directory
+    keep = {f"{name}.wav" for name in names}
+    for leftover in taps_dir.glob("*.wav"):
+        if leftover.name not in keep:
+            leftover.unlink()
+
+    meta = {
+        "sample_rate_hz": int(rate),
+        "length_samples": int(max(f for f, _r in frames_rates)),
+        "taps": names,
+        "view": True,
+    }
+    meta_path.write_text(json.dumps(meta, indent=2) + "\n")
     return bundle_root
 
 

@@ -112,6 +112,42 @@ def wav_is_plain_pcm16(path: str | Path) -> bool:
         return False
 
 
+def wav_header_info(path: str | Path):
+    """Header-only (frames, channels, sample_rate) of a RIFF/WAVE file, or
+    None when the header cannot be parsed. No PCM data is read: this is the
+    probe of io.bundle.materialize_bundle_view on hosts without the native
+    decoder."""
+    try:
+        with open(Path(path), "rb") as f:
+            riff = f.read(12)
+            if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
+                return None
+            channels = rate = block_align = None
+            while True:
+                header = f.read(8)
+                if len(header) < 8:
+                    return None
+                chunk_id, chunk_size = header[:4], struct.unpack("<I", header[4:])[0]
+                if chunk_id == b"fmt ":
+                    if chunk_size < 16 or chunk_size > 65536:
+                        return None
+                    fmt = f.read(chunk_size)
+                    if len(fmt) < 16:
+                        return None
+                    channels, rate = struct.unpack("<HI", fmt[2:8])
+                    (block_align,) = struct.unpack("<H", fmt[12:14])
+                    if chunk_size & 1:
+                        f.seek(1, 1)  # RIFF chunks are word-aligned
+                elif chunk_id == b"data":
+                    if not channels or not rate or not block_align:
+                        return None  # data before fmt: malformed
+                    return chunk_size // block_align, int(channels), int(rate)
+                else:
+                    f.seek(chunk_size + (chunk_size & 1), 1)
+    except (OSError, struct.error):
+        return None
+
+
 def _read_wav_raw(path: Path) -> Tuple[int, np.ndarray]:
     """(sample_rate_hz, raw samples) of a WAV file, from the native decoder
     when it is built and covers the format, else from scipy."""

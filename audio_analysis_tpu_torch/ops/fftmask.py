@@ -2,7 +2,9 @@
 FFT-domain filterbank with raised-cosine transitions
 (audio_analysis_tpu/ops/fftmask.py): the masks of all bands are one
 (bands, F) matrix built on the host with numpy, applied with one batched
-forward and one batched inverse transform.
+forward and one batched inverse transform. With spectrum-crop decimation
+a band whose support fits below a coarser Nyquist is inverse-transformed
+at N/k from the same forward spectrum.
 
 The numpy table functions are copies of the JAX package's (its module
 imports jax); tests hold them bit-identical. The 2^20-point transforms are
@@ -181,28 +183,124 @@ def build_fractional_octave_band_definitions(
 
 
 # ----------------------------------------------------------------------------
+# band decimation factors (host-side, from the mask matrix)
+# ----------------------------------------------------------------------------
+
+
+def band_decimation_factors(
+    masks: np.ndarray,
+    num_samples: int,
+    max_factor: int = 64,
+    min_length: int = 16384,
+) -> tuple:
+    """
+    Per-band power-of-two decimation factors for the cropped-spectrum
+    inverse (`banded_from_spectrum` with decimation > 1).
+
+    A band whose mask support lies entirely below the decimated Nyquist is
+    exactly representable at sample rate sr/k: the length-(N/k) inverse of
+    the cropped masked spectrum equals the full-rate band signal sampled at
+    every k-th instant (the discarded bins are zero). Its energy partial
+    sums match the full-rate Schroeder integrals up to windowed
+    Riemann/boundary terms that grow about linearly with k, so band EDC +
+    decay fits can run on planes k times smaller.
+
+    Constraints per band: mask support bin <= (N/k)/4 (a 2x oversampling
+    margin beyond bare representability, which keeps x^2 alias-free on the
+    decimated grid), N % k == 0 with N/k even (the packed-stereo mirror
+    needs an even length), N/k >= `min_length` (fit resolution), and
+    k <= `max_factor`.
+    """
+    factors = []
+    for row in np.asarray(masks):
+        nonzero = np.nonzero(row > 0.0)[0]
+        support_stop = int(nonzero[-1]) if nonzero.size else 1
+        k = 1
+        while (
+            k * 2 <= max_factor
+            and num_samples % (k * 2) == 0
+            and num_samples // (k * 2) >= min_length
+            and (num_samples // (k * 2)) % 2 == 0
+            and support_stop <= (num_samples // (k * 2)) // 4
+        ):
+            k *= 2
+        factors.append(k)
+    return tuple(factors)
+
+
+def crop_half_masks(masks: np.ndarray, num_samples: int, decimation: int) -> np.ndarray:
+    """
+    Host-side companion of `banded_from_spectrum`: crop the (bands, N/2+1)
+    half-spectrum masks to the decimated grid's (bands, M/2+1) and fold in
+    the 1/k inverse-length rescale (an inverse at length M = N/k scales by
+    1/M where the full-rate inverse scales by 1/N, so dividing the mask by k
+    makes the decimated output equal the full-rate band signal's samples).
+    """
+    m = num_samples // decimation
+    return (np.asarray(masks)[:, : m // 2 + 1] / float(decimation)).astype(np.float32)
+
+
+# ----------------------------------------------------------------------------
 # device-side batched application
 # ----------------------------------------------------------------------------
+
+
+def full_band_spectrum(x: torch.Tensor):
+    """
+    The forward transform shared by every band/decimation group: ("packed",
+    fft(L + iR)) for a stereo pair (the second-to-last axis is exactly 2 and
+    N is even), else ("real", rfft(x)).
+
+    The masks are real and even (conjugate-symmetric), so filtering
+    commutes with the packing: one c2c transform carries both channels.
+    """
+    n = x.shape[-1]
+    if x.ndim >= 2 and x.shape[-2] == 2 and n % 2 == 0:
+        return "packed", torch.fft.fft(torch.complex(x[..., 0, :], x[..., 1, :]), dim=-1)
+    return "real", torch.fft.rfft(x, dim=-1)
+
+
+def banded_from_spectrum(
+    kind: str,
+    spectrum: torch.Tensor,
+    masks: torch.Tensor,
+    num_samples: int,
+    decimation: int = 1,
+) -> torch.Tensor:
+    """
+    Apply (bands, M/2+1) half-spectrum masks (see `crop_half_masks`) to a
+    full-signal spectrum from `full_band_spectrum` and inverse-transform at
+    length M = num_samples / decimation.
+
+    kind "real":   spectrum (..., N/2+1) -> (..., bands, M)
+    kind "packed": spectrum (..., N) c2c of L + iR -> (..., 2, bands, M)
+
+    With decimation > 1 the crop keeps only the bins below the decimated
+    Nyquist, which is exact for bands whose mask support fits (see
+    `band_decimation_factors`). The filter still sees the full signal (the
+    reference filters, then trims); only the inverse grid is coarser.
+    """
+    m = num_samples // decimation
+    if kind == "packed":
+        if decimation > 1:
+            # the decimated c2c grid: positive frequencies 0..M/2, and the
+            # negative ones are the last M/2 - 1 bins of the full spectrum
+            spectrum = torch.cat(
+                [spectrum[..., : m // 2 + 1], spectrum[..., num_samples - (m // 2 - 1) :]], dim=-1
+            )
+        # mirror the half mask onto the full grid: mask[M - g] for g > M/2
+        masks_full = torch.cat([masks, torch.flip(masks[:, 1:-1], (-1,))], dim=-1)
+        z_banded = torch.fft.ifft(spectrum[..., None, :] * masks_full, dim=-1)
+        return torch.stack([z_banded.real, z_banded.imag], dim=-3).to(torch.float32)
+    banded = spectrum[..., None, : m // 2 + 1] * masks
+    return torch.fft.irfft(banded, n=m, dim=-1).to(torch.float32)
 
 
 def apply_band_masks(x: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """
     x: (..., N) real signal; masks: (bands, F) with F = N//2 + 1.
     Returns (..., bands, N): every band filtered with one batched forward
-    and one batched inverse transform.
-
-    Stereo: when the second-to-last axis is exactly 2 (an L/R pair) and N
-    is even, the pair packs into one complex signal z = L + iR. The masks
-    are real and even (conjugate-symmetric), so filtering commutes with the
-    packing: one c2c fft and one c2c ifft per band give both channels'
-    band signals (real part L, imaginary part R).
+    and one batched inverse transform (a stereo pair packed as L + iR, see
+    `full_band_spectrum`).
     """
-    n = x.shape[-1]
-    if x.ndim >= 2 and x.shape[-2] == 2 and n % 2 == 0:
-        spectrum = torch.fft.fft(torch.complex(x[..., 0, :], x[..., 1, :]), dim=-1)
-        # mirror the rfft-half mask onto the full c2c grid: mask[N-g] for g > N/2
-        masks_full = torch.cat([masks, torch.flip(masks[:, 1:-1], (-1,))], dim=-1)
-        z_banded = torch.fft.ifft(spectrum[..., None, :] * masks_full, dim=-1)
-        return torch.stack([z_banded.real, z_banded.imag], dim=-3).to(torch.float32)
-    spectrum = torch.fft.rfft(x, dim=-1)
-    return torch.fft.irfft(spectrum[..., None, :] * masks, n=n, dim=-1).to(torch.float32)
+    return banded_from_spectrum(*full_band_spectrum(x), masks, x.shape[-1])

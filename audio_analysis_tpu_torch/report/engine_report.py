@@ -29,6 +29,7 @@ from audio_analysis_tpu_torch.io import (
     open_bundle_chunks_i16,
 )
 from audio_analysis_tpu_torch.ops import stft as stft_ops
+from audio_analysis_tpu_torch.report.compare import compare_section_for_index
 from audio_analysis_tpu_torch.report.waterfall import (
     WaterfallAnalysisSettings,
     select_slice_frame_indices,
@@ -40,8 +41,8 @@ class EngineBundleSettings:
     reports_subdir: str = "reports"
     use_mono_downmix_for_stereo: bool = False
     config: EngineConfig = EngineConfig()
-    # taps per chunk: the modal 8192-point STFT plane is the largest
-    # intermediate of a chunk
+    # taps per chunk: the three-band filterbank plane and the modal
+    # 8192-point STFT plane are the largest intermediates of a chunk
     chunk_taps: int = 8
     # chunks decoded + uploaded ahead of the one being computed
     prefetch_chunks: int = 2
@@ -49,6 +50,11 @@ class EngineBundleSettings:
     # same unchanged bundle (keyed per chunk by tap path + mtime + size),
     # so a warm rerun skips decode and upload
     cache_device_audio: bool = True
+    # a previous run's bundle_metrics.json (or its reports dir, or bundle
+    # root): append a "Changes vs ..." section to the index flagging the
+    # headline metrics that moved by at least the threshold (report/compare.py)
+    compare_to: Optional[str] = None
+    compare_threshold_pct: float = 1.0
 
 
 def _channel_names_from_output(out: Dict[str, np.ndarray]) -> List[str]:
@@ -420,11 +426,20 @@ def run_bundle_report_engine(
         # NaN/Infinity are emitted as-is (Python json extension)
         "metrics": {k: np.asarray(v).tolist() for k, v in out.items()},
     }
+    # the previous run's file is read before this run's dump overwrites it,
+    # so comparing against the same reports dir in place works
+    compare_section = None
+    if settings.compare_to:
+        compare_section = compare_section_for_index(
+            metrics_json, settings.compare_to, settings.compare_threshold_pct
+        )
     # compact separators keep CPython's C encoder
     phases["json_s"] = round(time.perf_counter() - start_json, 4)
     (reports_root / "bundle_metrics.json").write_text(
         json.dumps(metrics_json, separators=(",", ":"))
     )
+    if compare_section:
+        index_lines.append(compare_section)
 
     index_path = reports_root / "bundle_report.md"
     index_path.write_text("\n".join(index_lines) + "\n")

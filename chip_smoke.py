@@ -20,7 +20,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
           in ptxas' report; timed at 16 and 48 rows x 2^20, a single call
           with its wrapper and a call within 20 back to back (no single
           PyTorch call; torch.cumsum of the squared plane, the scan core
-          alone, is logged beside it);
+          alone, is logged beside it); and at the --bands-decimate planes
+          (16, 2^15), (16, 2^18) and (12, 2^14), checked and timed the same;
        K2 STFT magnitude: 16 rows x 2^20 at (4096, 512) and at (8192, 512)
           with the modal k_out; max |err| / max(ref) < 1e-5; library call
           torch.stft(center=False, Hann) + abs;
@@ -37,9 +38,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      relative; JSON integers and flags exact, floats within 1e-4, per-bin
      modal fits 1e-2, group delay 1e-3 relative);
   6. where one chunk's device time goes (profiler device-busy time, each
-     block toggled off in turn), and the bundle under other loads: octave
-     and third-octave bands, every chunk decoded and uploaded again, and
-     the device's busy share of a warm run.
+     block toggled off in turn, and the bands block with --bands-decimate),
+     and the bundle under other loads: octave and third-octave bands,
+     every chunk decoded and uploaded again, and the device's busy share of
+     a warm run;
+  7. the rest of the engine fast path through the CLI entry, each command
+     with the launch counters set to 0 before it and read after it:
+     `bundle --no-plots --bands-decimate` (8 K1 launches for 2 chunks, the
+     kernel run against the plain run, its band fits against the full-rate
+     run logged), third-octave with decimation, `--compare <own reports>
+     --fail-on-change` on an unchanged rerun (exit 0, no change flagged)
+     and the `compare` subcommand, `batch --no-plots` over 4 tap WAVs
+     (agrees with the bundle run), and `watch --max-bundles 2` over two
+     copies of a 4-tap bundle with one tap re-recorded (two indexes, the
+     second flagging a change, two event-log lines).
 
 The port's path must not load jax, matplotlib or the JAX package
 (audio_analysis_tpu). The last lines are the kernels' JSON, the card's name
@@ -65,6 +77,10 @@ SR = 48_000
 TAPS = 16
 N = 1 << 20
 CHUNK_TAPS = 8
+MAIN_PATH = "bundle"
+# K1's planes under --bands-decimate at N = 2^20: (16, N/32) and (16, N/4)
+# per three-band chunk of 8 stereo taps, (12, N/64) per third-octave tap
+DECIMATED_EDC_SHAPES = ((16, N // 32), (16, N // 4), (12, N // 64))
 
 
 def log(msg: str) -> None:
@@ -204,6 +220,25 @@ def check_edc(torch, edc, dev, g):
         log(f"K1 edc ({rows}, {N}): torch.cumsum of the squared plane (scan core only) {scan:.3f} ms")
         log(f"K1 edc ({rows}, {N}): kernel {k:.3f} ms ({k_run:.3f} ms a call back to back), "
             f"plain {p:.3f} ms, bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
+    # the decimated band planes of `--bands-decimate` (factors 32, 4 and 1
+    # at 2^20): a three-band chunk's Low and Mid groups, and third-octave's
+    # smallest group of one tap (6 bands at k = 64). Same checks and bound.
+    for rows, n in DECIMATED_EDC_SHAPES:
+        t = torch.arange(n, dtype=torch.float32)
+        xr = (0.01 * torch.randn(rows, n, generator=g) * torch.exp(-t / (30000.0 * n / N))).to(dev)
+        lr = torch.randint(n // 2, n + 1, (rows,), generator=g, dtype=torch.int32)
+        lr[0] = n
+        xr = torch.where(torch.arange(n, device=dev) < lr.to(dev)[:, None], xr, 0.0)
+        lr = lr.to(dev)
+        worst = max(worst, edc_error(torch, edc, xr, lr))
+        k = time_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
+        k_run = time_back_to_back_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
+        p = time_ms(lambda: edc.schroeder_edc_db_plain(xr, lr))
+        b, by = bound(rows * n * 4 * 2 + rows * 4, rows * n * 4.0)
+        shapes.append({"shape": [rows, n], "path": "bands_decimate", "ms": k, "plain_ms": p, "bound_ms": b,
+                       "bound_by": by, "library_ms": None, "ms_back_to_back": k_run})
+        log(f"K1 edc ({rows}, {n}) [--bands-decimate]: kernel {k:.3f} ms ({k_run:.3f} ms a call back to "
+            f"back), plain {p:.3f} ms, bound {b:.4f} ms ({by}), {b / k:.0%} of bound")
     return worst, shapes
 
 
@@ -248,17 +283,22 @@ def check_stft(torch, stft, dev, g, k_out):
     return worst, shapes
 
 
-def kernel_entry(name, source, replaces, launch_count, err, shapes) -> dict:
+def kernel_entry(name, source, replaces, launches_by_path, err, shapes) -> dict:
     """One kernel of the kernels line: times, bounds and library times summed
-    over its calls in one chunk, with each call's numbers under `shapes`."""
-    libs = [sh["library_ms"] for sh in shapes]
-    ms = sum(sh["ms"] for sh in shapes)
-    bound_ms = sum(sh["bound_ms"] for sh in shapes)
-    kinds = {sh["bound_by"] for sh in shapes}
+    over its calls in one chunk of the main path (`bundle --no-plots`), with
+    each call's numbers under `shapes` (calls of another path carry its
+    name under "path" and stay out of the sums). `launches` is the main
+    path's count; `launches_by_path` holds every driven path's."""
+    main = [sh for sh in shapes if "path" not in sh]
+    libs = [sh["library_ms"] for sh in main]
+    ms = sum(sh["ms"] for sh in main)
+    bound_ms = sum(sh["bound_ms"] for sh in main)
+    kinds = {sh["bound_by"] for sh in main}
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launch_count, "max_abs_err": err,
-        "ms": ms, "plain_ms": sum(sh["plain_ms"] for sh in shapes),
+        "launches": launches_by_path[MAIN_PATH], "launches_by_path": launches_by_path,
+        "max_abs_err": err,
+        "ms": ms, "plain_ms": sum(sh["plain_ms"] for sh in main),
         "bound_ms": bound_ms, "bound_by": kinds.pop() if len(kinds) == 1 else "mixed",
         "bound_share": bound_ms / ms,
         "library_ms": None if None in libs else sum(libs),
@@ -411,6 +451,7 @@ def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
     out = {"chunk_elapsed_ms": time_ms(lambda: analyze_batch(pcm, lens, base), reps=3)}
     full = out["chunk_busy_ms"] = busy_ms(base)
     # FR and group delay share one rfft, so they go off together
+    off = {}
     for label, flags in (
         ("bands", ("run_bands",)),
         ("fr_group_delay", ("run_fr", "run_group_delay")),
@@ -418,7 +459,13 @@ def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
         ("modal", ("run_modal",)),
         ("diffusion", ("run_diffusion",)),
     ):
-        out[label + "_busy_ms"] = full - busy_ms(replace(base, **{f: False for f in flags}))
+        off[label] = busy_ms(replace(base, **{f: False for f in flags}))
+        out[label + "_busy_ms"] = full - off[label]
+    # the bands block with --bands-decimate, against the same bands-off run
+    decimated = replace(base, bands_decimate=True)
+    out["chunk_decimated_busy_ms"] = busy_ms(decimated)
+    out["bands_decimated_busy_ms"] = out["chunk_decimated_busy_ms"] - off["bands"]
+    out["chunk_decimated_elapsed_ms"] = time_ms(lambda: analyze_batch(pcm, lens, decimated), reps=3)
     out["align_decay_busy_ms"] = busy_ms(
         replace(
             base, run_bands=False, run_fr=False, run_group_delay=False, run_stft=False,
@@ -453,6 +500,188 @@ def other_loads(torch, cli_main, root: Path, dev) -> dict:
         torch.cuda.synchronize()
         out["uncached_s"].append(time.perf_counter() - t0)
     out["warm_profiled"] = device_busy(torch, lambda: run_cli(cli_main, root, "reports_cuda"))
+    return out
+
+
+def count_launches(counters, fn):
+    """fn() with every kernel's launch counter set to 0 just before and read
+    just after; raises if a kernel of the path never launched."""
+    for counter in counters:
+        counter.launches = 0
+    result = fn()
+    launches = {c.name: c.launches for c in counters}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    return result, launches
+
+
+def cli_exit_code(main, argv) -> int:
+    try:
+        main(argv)
+    except SystemExit as exc:
+        return exc.code if isinstance(exc.code, int) else 1
+    return 0
+
+
+def band_fit_movement(full: dict, decimated: dict) -> dict:
+    """Largest and median relative difference of each band fit between the
+    full-rate and the decimated run where both fits are valid, with the
+    (tap, channel, band) and both values of the largest."""
+    import numpy as np
+
+    out = {}
+    for name in ("band_t30", "band_t20", "band_edt"):
+        a, b = np.asarray(full[name + "_rt60"]), np.asarray(decimated[name + "_rt60"])
+        ok = np.asarray(full[name + "_ok"], bool) & np.asarray(decimated[name + "_ok"], bool)
+        if not ok.any():
+            out[name] = None
+            continue
+        rel = np.where(ok, np.abs(b - a) / np.where(ok, np.abs(a), 1.0), -1.0)
+        at = np.unravel_index(int(np.argmax(rel)), rel.shape)
+        out[name] = {"max": float(rel[at]), "median": float(np.median(rel[ok])),
+                     "at": [int(i) for i in at], "full_s": float(a[at]), "decimated_s": float(b[at])}
+    return out
+
+
+def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_path: dict, full_json: dict) -> dict:
+    """Phase 7: the rest of the engine fast path through the CLI entry, each
+    command with the launch counters read around it:
+    `bundle --no-plots --bands-decimate` (cold, warm, against the plain
+    versions, and against the full-rate run), third-octave with decimation,
+    `--compare --fail-on-change` on an unchanged rerun and the `compare`
+    subcommand, `batch --no-plots` over 4 of the bundle's taps, and `watch`
+    over two copies of a 4-tap bundle, one tap re-recorded."""
+    import contextlib
+    import io
+    import shutil
+
+    from audio_analysis_tpu_torch.engine import EngineConfig
+    from audio_analysis_tpu_torch.engine.batch import band_masks
+    from audio_analysis_tpu_torch.io.wav import load_wav_file, write_wav_pcm16
+    from audio_analysis_tpu_torch.ops import edc, fftmask, stft
+    from audio_analysis_tpu_torch.report import count_flagged_in_text
+    from audio_analysis_tpu_torch.report import watch as watch_module
+
+    out = {}
+    names = full_json["taps"]
+
+    # 7.1 bundle --no-plots --bands-decimate: K1 once for the broadband
+    # decay and once per band decimation group (3 at 2^20) a chunk
+    torch.cuda.reset_peak_memory_stats(dev)
+    cold, launches = count_launches(counters, lambda: run_cli(cli_main, root, "reports_decimate", "--bands-decimate"))
+    launches_by_path["bundle --bands-decimate"] = launches
+    groups = len(set(fftmask.band_decimation_factors(band_masks(EngineConfig(), N), N)))
+    expected = -(-TAPS // CHUNK_TAPS) * (1 + groups)
+    if launches["edc"] != expected:
+        raise AssertionError(f"--bands-decimate: {launches['edc']} K1 launches, expected {expected}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    warm = [run_cli(cli_main, root, "reports_decimate", "--bands-decimate") for _ in range(3)]
+    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        plain = run_cli(cli_main, root, "reports_decimate_plain", "--bands-decimate")
+    dec_json = json.loads((root / "reports_decimate" / "bundle_metrics.json").read_text())
+    plain_json = json.loads((root / "reports_decimate_plain" / "bundle_metrics.json").read_text())
+    check_finite(dec_json["metrics"])
+    compare_metrics(dec_json["metrics"], plain_json["metrics"])
+    for tap in names:
+        compare_markdown(
+            (root / "reports_decimate" / tap / f"{tap}_report.md").read_text(),
+            (root / "reports_decimate_plain" / tap / f"{tap}_report.md").read_text(),
+            tap,
+        )
+    movement = band_fit_movement(full_json["metrics"], dec_json["metrics"])
+    log(f"--bands-decimate: kernel run == plain run on the card; K1 launches {launches['edc']}; "
+        f"largest relative band fit difference from the full-rate run {movement}")
+    out["bands_decimate"] = {
+        "cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
+        "band_fit_max_rel_diff_vs_full_rate": movement,
+    }
+
+    # 7.2 third-octave with --bands-decimate
+    torch.cuda.reset_peak_memory_stats(dev)
+    third = ("--bands", "third", "--bands-decimate")
+    cold = run_cli(cli_main, root, "reports_third_decimate", *third)
+    out["third_decimated"] = {
+        "cold_s": cold,
+        "warm_s": [run_cli(cli_main, root, "reports_third_decimate", *third) for _ in range(3)],
+        "peak_device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+
+    # 7.3 the compare gate on an unchanged rerun, and the compare subcommand
+    reports = root / "reports_cuda"
+    t0 = time.perf_counter()
+    code, launches = count_launches(counters, lambda: cli_exit_code(cli_main, [
+        "bundle", "--input", str(root), "--no-plots", "--reports-subdir", "reports_cuda",
+        "--compare", str(reports), "--fail-on-change",
+    ]))
+    rerun_s = time.perf_counter() - t0
+    launches_by_path["bundle --compare --fail-on-change"] = launches
+    if code != 0 or "No changes above threshold." not in (reports / "bundle_report.md").read_text():
+        raise AssertionError(f"unchanged rerun: --fail-on-change exit {code}, or changes flagged")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli_main(["compare", str(reports), str(root / "reports_decimate")])
+    flagged = count_flagged_in_text(text.getvalue())
+    log(f"compare full-rate -> --bands-decimate: {flagged} flagged lines")
+    out["compare"] = {"unchanged_rerun_s": rerun_s, "decimated_vs_full_rate_flagged": flagged}
+
+    # 7.4 batch --no-plots over 4 of the bundle's tap WAVs
+    picks = [names[i] for i in (0, 5, 10, 15)]
+    batch_root = REPO / "build" / "chip_smoke_batch"
+    shutil.rmtree(batch_root, ignore_errors=True)
+    wavs = [str(root / "taps" / f"{tap}.wav") for tap in picks]
+    t0 = time.perf_counter()
+    _, launches = count_launches(counters, lambda: cli_main(
+        ["batch", "--inputs", *wavs, "--output", str(batch_root), "--no-plots"]
+    ))
+    launches_by_path["batch"] = launches
+    batch_s = time.perf_counter() - t0
+    batch_json = json.loads((batch_root / "reports" / "bundle_metrics.json").read_text())
+    if batch_json["taps"] != picks:
+        raise AssertionError(f"batch taps {batch_json['taps']}")
+    rows = [names.index(tap) for tap in picks]
+    compare_metrics(batch_json["metrics"], {k: [v[i] for i in rows] for k, v in full_json["metrics"].items()})
+    log(f"batch --no-plots over {len(picks)} tap WAVs agrees with the bundle run ({batch_s:.3f} s)")
+    out["batch_s"] = batch_s
+
+    # 7.5 watch: two copies of a 4-tap bundle, one tap re-recorded at 0.9x
+    watch_root = REPO / "build" / "chip_smoke_watch"
+    shutil.rmtree(watch_root, ignore_errors=True)
+    for run, scale in (("run1", 1.0), ("run2", 0.9)):
+        taps_dir = watch_root / run / "taps"
+        taps_dir.mkdir(parents=True)
+        for tap in picks:
+            shutil.copyfile(root / "taps" / f"{tap}.wav", taps_dir / f"{tap}.wav")
+        if scale != 1.0:
+            loaded = load_wav_file(taps_dir / f"{picks[0]}.wav")
+            write_wav_pcm16(taps_dir / f"{picks[0]}.wav", loaded.samples * scale, SR)
+        meta = {"sample_rate_hz": SR, "length_samples": N, "taps": picks}
+        (watch_root / run / "meta.json").write_text(json.dumps(meta))  # last, as the recorder does
+    real_watch = watch_module.watch_bundle_runs
+    deadline = time.monotonic() + 180.0
+
+    def bounded_watch(*args, **kwargs):
+        return real_watch(*args, stop=lambda: time.monotonic() > deadline, **kwargs)
+
+    t_start = time.time()
+    with mock.patch.object(watch_module, "watch_bundle_runs", bounded_watch):
+        _, launches = count_launches(counters, lambda: cli_main(
+            ["watch", "--input", str(watch_root), "--max-bundles", "2", "--interval", "0.05"]
+        ))
+    launches_by_path["watch"] = launches
+    events = [json.loads(line) for line in (watch_root / "watch_log.jsonl").read_text().splitlines()]
+    indexes = [watch_root / run / "reports" / "bundle_report.md" for run in ("run1", "run2")]
+    if len(events) != 2 or not all(p.is_file() for p in indexes):
+        raise AssertionError(f"watch: {len(events)} events, indexes {[p.is_file() for p in indexes]}")
+    second = indexes[1].read_text()
+    if "## Changes vs" not in second or count_flagged_in_text(second) < 1:
+        raise AssertionError("watch: the second index flags no change")
+    cycles = [events[0]["ts"] - t_start, events[1]["ts"] - events[0]["ts"]]
+    log(f"watch: 2 bundles, cycles {cycles[0]:.3f} s and {cycles[1]:.3f} s, "
+        f"{count_flagged_in_text(second)} flagged lines in the second index")
+    out["watch"] = {"cycle_s": cycles, "flagged_second": count_flagged_in_text(second),
+                    "events": [{k: e.get(k) for k in ("compute_seconds", "audio_chunks_reused",
+                                                      "audio_chunks_uploaded")} for e in events]}
     return out
 
 
@@ -511,15 +740,11 @@ def main() -> int:
 
     # 4. the main path, through the CLI entry
     counters = (edc.EDC_KERNEL, stft.STFT_KERNEL)
-    for counter in counters:
-        counter.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    phases["e2e_cold_s"] = run_cli(cli_main, root, "reports_cuda")
-    launches = {c.name: c.launches for c in counters}
+    phases["e2e_cold_s"], launches = count_launches(counters, lambda: run_cli(cli_main, root, "reports_cuda"))
+    launches_by_path = {MAIN_PATH: launches}
     phases["peak_device_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"main path launches: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
     # warm runs (device audio cache hits) with the kernels and with the
     # plain versions swapped in, alternating on the same card
@@ -559,6 +784,12 @@ def main() -> int:
     phases["blocks_ms"] = block_times(torch, analyze_batch, EngineConfig, root, dev)
     phases["other_loads"] = other_loads(torch, cli_main, root, dev)
 
+    # 7. the rest of the engine fast path
+    fast = fast_path_commands(torch, cli_main, root, dev, counters, launches_by_path, cuda_json)
+    phases["other_loads"]["third_decimated"] = fast.pop("third_decimated")
+    phases["fast_path"] = fast
+    phases["launches_by_path"] = launches_by_path
+
     banned = sorted(
         m for m in sys.modules
         if m in ("jax", "matplotlib", "audio_analysis_tpu")
@@ -570,9 +801,11 @@ def main() -> int:
 
     kernels = [
         kernel_entry("schroeder_edc_db", "audio_analysis_tpu_torch/csrc/edc.cu",
-                     "audio_analysis_tpu/ops/pallas_kernels.py:143", launches["edc"], edc_err, edc_shapes),
+                     "audio_analysis_tpu/ops/pallas_kernels.py:143",
+                     {path: n["edc"] for path, n in launches_by_path.items()}, edc_err, edc_shapes),
         kernel_entry("stft_magnitude", "audio_analysis_tpu_torch/csrc/stft.cu",
-                     "audio_analysis_tpu/ops/pallas_stft.py:219", launches["stft"], stft_err, stft_shapes),
+                     "audio_analysis_tpu/ops/pallas_stft.py:219",
+                     {path: n["stft"] for path, n in launches_by_path.items()}, stft_err, stft_shapes),
     ]
     for k in kernels:
         numbers = [k["max_abs_err"], k["ms"], k["plain_ms"], k["bound_ms"]]

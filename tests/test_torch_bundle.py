@@ -137,19 +137,21 @@ def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "extra,flag",
+    "argv,flag",
     [
-        ([], "--no-plots"),
-        (["--no-plots", "--bands-decimate"], "--bands-decimate"),
-        (["--no-plots", "--compare", "prev"], "--compare"),
-        (["--no-plots", "--multi-host"], "--multi-host"),
-        (["--no-plots", "--tap-shard", "0/2"], "--tap-shard"),
-        (["--no-plots", "--resume"], "--resume"),
-        (["--no-plots", "--plot-processes", "2"], "--plot-processes"),
+        (["bundle", "--input", "unused"], "--no-plots"),
+        (["bundle", "--input", "unused", "--no-plots", "--multi-host"], "--multi-host"),
+        (["bundle", "--input", "unused", "--no-plots", "--coordinator", "h:1"], "--coordinator"),
+        (["bundle", "--input", "unused", "--tap-shard", "0/2"], "--tap-shard"),
+        (["bundle", "--input", "unused", "--resume"], "--resume"),
+        (["bundle", "--input", "unused", "--no-plots", "--plot-processes", "2"], "--plot-processes"),
+        (["batch", "--inputs", "a.wav", "--output", "unused"], "--no-plots"),
+        (["watch", "--input", "unused", "--plots"], "--plots"),
+        (["watch", "--input", "unused", "--plot-processes", "2"], "--plot-processes"),
     ],
 )
-def test_cli_refuses_flags_not_yet_ported(extra, flag):
+def test_cli_refuses_flags_not_yet_ported(argv, flag):
     with pytest.raises(SystemExit) as exc:
-        torch_cli_main(["bundle", "--input", "unused", "--device", "cpu"] + extra)
+        torch_cli_main(argv + ["--device", "cpu"])
     message = str(exc.value.code)
     assert "not yet ported" in message and flag in message

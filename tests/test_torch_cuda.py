@@ -12,13 +12,15 @@ tests/test_torch_engine.py.
 """
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
-from audio_analysis_tpu_torch.ops import edc, stft
+from audio_analysis_tpu_torch.engine.batch import band_masks
+from audio_analysis_tpu_torch.ops import edc, fftmask, stft
 
 pytestmark = pytest.mark.cuda
 
@@ -54,10 +56,14 @@ def _assert_edc_matches_plain(x, lengths):
     return got
 
 
-# the octave and third-octave bands of one stereo tap are 18 and 52 rows
+# the octave and third-octave bands of one stereo tap are 18 and 52 rows;
+# with --bands-decimate a three-band chunk of 8 stereo taps gives
+# (16, 2^15) and (16, 2^18) planes, and third-octave's smallest group of
+# one tap (12, 2^14)
 @pytest.mark.parametrize(
     "rows,n",
-    [(64, 1 << 20), (16, (1 << 20) - 3 * 4096), (18, 1 << 20), (52, 1 << 20), (3, 4097), (2, 5), (3, 1)],
+    [(64, 1 << 20), (16, (1 << 20) - 3 * 4096), (18, 1 << 20), (52, 1 << 20), (3, 4097), (2, 5), (3, 1),
+     (16, 1 << 15), (16, 1 << 18), (12, 1 << 14)],
 )
 def test_edc_kernel_matches_plain(dev, rows, n):
     x, lengths = _decays(rows, n, rows + n)
@@ -156,6 +162,39 @@ def test_engine_on_card_matches_cpu(dev):
     for key, value in ref.items():
         a, b = got[key].cpu().numpy(), value.numpy()
         assert a.dtype == b.dtype and a.shape == b.shape, key
+        if key.endswith("_ok") or a.dtype == np.int32:
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            rtol = 1e-2 if key in ("modal_rt60", "modal_r2") else 1e-3
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-4, equal_nan=True, err_msg=key)
+
+
+@pytest.mark.parametrize("band_mode", ["three", "third"])
+def test_decimated_engine_kernels_match_plain_on_card(dev, band_mode):
+    """analyze_batch(bands_decimate=True) on the card through the kernels,
+    against the same call with the plain versions swapped in: K1 launches
+    once for the broadband decay and once per decimation group (per tap in
+    third-octave mode)."""
+    rng = np.random.default_rng(5)
+    n = 1 << 18
+    t = np.arange(n) / 48_000
+    x = np.zeros((2, 2, n), np.float32)
+    x[:, :, 256:] = 0.05 * rng.standard_normal((2, 2, n - 256)) * 10.0 ** (-3.0 * t[: n - 256] / 1.2)
+    x[:, :, 256] = 0.9
+    lengths = np.array([n, n - 9000], np.int32)
+    x[1, :, n - 9000 :] = 0.0
+    cfg = dataclasses.replace(EngineConfig(), band_mode=band_mode, bands_decimate=True)
+    groups = len(set(fftmask.band_decimation_factors(band_masks(cfg, n), n)))
+    assert groups > 1
+    xs, ls = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
+    before = edc.EDC_KERNEL.launches
+    got = analyze_batch(xs, ls, cfg)
+    assert edc.EDC_KERNEL.launches - before == 1 + groups * (1 if band_mode == "three" else 2)
+    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        ref = analyze_batch(xs, ls, cfg)
+    for key, value in ref.items():
+        a, b = got[key].cpu().numpy(), value.cpu().numpy()
         if key.endswith("_ok") or a.dtype == np.int32:
             np.testing.assert_array_equal(a, b, err_msg=key)
         else:

@@ -260,9 +260,4 @@ def test_pipelined_chunks_match_one_batch(prefetch):
 def test_not_yet_ported_options_raise():
     pcm, lengths = _small_bundle(1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        analyze_batch(
-            torch.from_numpy(pcm), torch.from_numpy(lengths),
-            dataclasses.replace(SMALL_CFG, bands_decimate=True),
-        )
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         analyze_bundle_pipelined(lambda lo, hi: pcm, lengths, SMALL_N, SMALL_CFG, mesh=object(), device="cpu")
