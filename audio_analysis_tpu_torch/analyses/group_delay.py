@@ -1,0 +1,133 @@
+"""
+Group delay vs frequency (audio_analysis_tpu/analyses/group_delay.py,
+analysis and summary; the figure and the `exact_grid` host float64
+fallback are not ported yet): gd(w) = -dphi/dw in samples from the
+unwrapped rfft phase, optional bin smoothing, and the median / p10 / p90
+summary.
+
+The FFT (torch.fft) runs at the padded bucket length capped at 2^20, or
+at `fft_size` (the aligned segment cut or zero-padded to it on the
+device).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from audio_analysis_tpu_torch.analyses._common import FileDsp, single_channel_dsp
+from audio_analysis_tpu_torch.ops import spectral
+
+_MAX_FFT = 1 << 20
+
+
+@dataclass(frozen=True)
+class GroupDelayAnalysisSettings:
+    use_mono_downmix_for_stereo: bool = False
+    trim_to_peak: bool = True
+    ignore_leading_seconds: float = 0.0
+    analysis_duration_seconds: Optional[float] = None
+    use_hann_window: bool = True
+    fft_size: Optional[int] = None  # None -> the bucket length (capped 2^20)
+    f_min_hz: float = 20.0
+    f_max_hz: float = 20000.0
+    unwrap_phase: bool = True
+    smoothing_bins: int = 0
+    # host float64 fallback at the reference's exact FFT size: not ported
+    # yet, refused
+    exact_grid: bool = False
+
+
+@dataclass(frozen=True)
+class ChannelGroupDelayResult:
+    channel_name: str
+    sample_rate_hz: int
+    frequency_hz: np.ndarray
+    group_delay_samples: np.ndarray
+
+
+def analyse_group_delay_channels(
+    dsp: FileDsp,
+    settings: GroupDelayAnalysisSettings,
+) -> List[ChannelGroupDelayResult]:
+    """All channels in one batched phase / gradient pass."""
+    if settings.exact_grid:
+        raise NotImplementedError("exact_grid (the host float64 fallback) is not yet ported")
+    sample_rate_hz = dsp.sample_rate_hz
+    aligned = dsp.aligned(
+        settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds
+    )
+    n_fft = min(dsp.bucket_samples, _MAX_FFT) if settings.fft_size is None else int(settings.fft_size)
+    samples, length = aligned.samples, aligned.length
+    if n_fft != dsp.bucket_samples:
+        take = min(n_fft, dsp.bucket_samples)
+        samples = torch.zeros((samples.shape[0], n_fft), dtype=samples.dtype, device=samples.device)
+        samples[:, :take] = aligned.samples[:, :take]
+        length = torch.clamp(length, max=take)
+
+    r = spectral.group_delay(
+        samples,
+        length,
+        sample_rate_hz,
+        use_hann_window=settings.use_hann_window,
+        unwrap=settings.unwrap_phase,
+        smoothing_bins=int(settings.smoothing_bins),
+        f_min_hz=float(settings.f_min_hz),
+        f_max_hz=float(settings.f_max_hz),
+    )
+    freq_hz = np.fft.rfftfreq(n_fft, d=1.0 / sample_rate_hz)
+    sel = (freq_hz >= settings.f_min_hz) & (freq_hz <= settings.f_max_hz)
+    gd_all = r.group_delay_samples.cpu().numpy()  # (C, F)
+    return [
+        ChannelGroupDelayResult(
+            channel_name=channel_name,
+            sample_rate_hz=int(sample_rate_hz),
+            frequency_hz=freq_hz[sel].astype(np.float64),
+            group_delay_samples=gd_all[i][sel].astype(np.float64),
+        )
+        for i, channel_name in enumerate(dsp.channel_names)
+    ]
+
+
+def analyse_group_delay_for_channel(
+    samples: np.ndarray,
+    sample_rate_hz: int,
+    channel_name: str,
+    settings: GroupDelayAnalysisSettings,
+    device: "str | torch.device" = "cuda",
+) -> ChannelGroupDelayResult:
+    return analyse_group_delay_channels(
+        single_channel_dsp(samples, sample_rate_hz, channel_name, device), settings
+    )[0]
+
+
+def analyse_group_delay_from_wav_file(
+    input_wav_file_path: str | Path,
+    settings: Optional[GroupDelayAnalysisSettings] = None,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelGroupDelayResult]:
+    if settings is None:
+        settings = GroupDelayAnalysisSettings()
+    if dsp is None:
+        dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
+    return analyse_group_delay_channels(dsp, settings)
+
+
+def summarise_group_delay_results_text(results: List[ChannelGroupDelayResult]) -> str:
+    lines: List[str] = []
+    for r in results:
+        gd = r.group_delay_samples
+        if gd.size == 0:
+            continue
+        lines.append(
+            f"- {r.channel_name}: gd median={float(np.median(gd)):.3f} samples, "
+            f"p10={float(np.percentile(gd, 10)):.3f}, p90={float(np.percentile(gd, 90)):.3f}"
+        )
+    if not lines:
+        return "No group delay results."
+    return "Group delay summary:\n" + "\n".join(lines)

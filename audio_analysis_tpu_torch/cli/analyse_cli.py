@@ -1,18 +1,23 @@
 """
-The port's analyse CLI: the engine-path subcommands of
+The port's analyse CLI: the engine-path and per-file subcommands of
 audio_analysis_tpu/cli/analyse_cli.py with the same flags, defaults,
-messages and exit codes.
+messages, stdout and exit codes.
 
     python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots [--compare PREV --fail-on-change]
     python -m audio_analysis_tpu_torch.cli batch --inputs a.wav b.wav --output <dir> --no-plots
     python -m audio_analysis_tpu_torch.cli watch --input <recorder output dir>
     python -m audio_analysis_tpu_torch.cli compare <previous run> <current run>
+    python -m audio_analysis_tpu_torch.cli decay --input ir.wav --no_show [--json out.json]
+        (likewise rt60bands, fr, spectrogram, diffusion, waterfall,
+        modalcloud; groupdelay spells it --no-show)
+    python -m audio_analysis_tpu_torch.cli deconvolve --recorded_wav_file_path r.wav --sweep_wav_file_path s.wav
 
 `--device` picks the torch device (default cuda; `--device cpu` runs the
 plain torch versions of the kernels on the host). Without CUDA, a command
 that touches the device exits at once unless `--device cpu` is given.
 Flags of the JAX CLI whose paths are not ported yet are refused with a
-"not yet ported" exit.
+"not yet ported" exit; so are the figures of the per-file commands
+(`--output`, or a run without `--no_show`) and `--exact-grid`.
 """
 
 from __future__ import annotations
@@ -56,6 +61,26 @@ def _add_engine_config_flags(p: argparse.ArgumentParser) -> None:
                    help="Audio chunks decoded + uploaded ahead of the one being computed "
                         "(EngineBundleSettings.prefetch_chunks, default 2; 1 = serialized "
                         "pipeline).")
+
+
+def _add_input(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--input",
+        dest="input_wav_file_path",
+        type=str,
+        required=True,
+        help="Path to input WAV file (mono or stereo, 48 kHz expected).",
+    )
+
+
+def _add_output_noshow(p: argparse.ArgumentParser, help_text: str, underscore: bool) -> None:
+    p.add_argument("--output", dest="output_basename", type=str, default=None,
+                   help=help_text + " (figures: not yet ported)")
+    flag = "--no_show" if underscore else "--no-show"
+    p.add_argument(flag, dest="no_show", action="store_true",
+                   help="Do not display plots (required: the figures are not yet ported).")
+    p.add_argument("--json", dest="json_path", type=str, default=None,
+                   help="Also write the result tree as JSON to this path.")
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -202,7 +227,189 @@ def build_parser() -> argparse.ArgumentParser:
                         "--compare-threshold accepted for bundle-flag parity).")
     p.add_argument("--fail-on-change", dest="fail_on_change", action="store_true",
                    help="Exit 3 when any change is flagged.")
+
+    _add_per_file_parsers(sub)
     return top
+
+
+def _add_per_file_parsers(sub) -> None:
+    """The per-file subcommands, with the JAX CLI's flags, dests, defaults
+    and choices, plus --device."""
+    # --- groupdelay ---
+    p = sub.add_parser("groupdelay", help="Group delay vs frequency from an IR/filter output.")
+    _add_input(p)
+    _add_output_noshow(p, "Output basename -> <basename>_groupdelay_<CH>.png", underscore=False)
+    p.add_argument("--mono", dest="use_mono_downmix_for_stereo", action="store_true")
+    p.add_argument("--no-trim", dest="trim_to_peak", action="store_false")
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--fft", dest="fft_size", type=int, default=None)
+    p.add_argument("--smooth", dest="smoothing_bins", type=int, default=0)
+    p.add_argument("--fmin", dest="f_min_hz", type=float, default=20.0)
+    p.add_argument("--fmax", dest="f_max_hz", type=float, default=20000.0)
+    p.add_argument("--exact-grid", dest="exact_grid", action="store_true",
+                   help="Host fallback on the reference's exact FFT grid (not yet ported).")
+    _add_device(p)
+
+    # --- deconvolve ---
+    p = sub.add_parser("deconvolve", help="Deconvolve recorded sweep output into an IR WAV.")
+    p.add_argument("--recorded_wav_file_path", type=str, required=True)
+    p.add_argument("--sweep_wav_file_path", type=str, required=True)
+    p.add_argument("--output_ir_wav_file_path", type=str, default=None)
+    p.add_argument("--regularization_relative", type=float, default=1e-10)
+    p.add_argument("--normalise_peak", action=BoolOpt, default=True)
+    p.add_argument("--target_peak", type=float, default=0.95)
+    p.add_argument("--remove_dc", action=BoolOpt, default=True)
+    p.add_argument("--output_length_mode", type=str, choices=["recorded", "full_fft"],
+                   default="recorded")
+    _add_device(p)
+
+    # --- decay ---
+    p = sub.add_parser("decay", help="Schroeder EDC + T20/T30/RT60 decay estimation")
+    _add_input(p)
+    _add_output_noshow(p, "If provided, saves a PNG: <basename>_decay.png", underscore=True)
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--edc_floor_db", type=float, default=-120.0)
+    p.add_argument("--fit_lower_limit_db", type=float, default=-80.0)
+    p.add_argument("--smoothing", dest="edc_smoothing_window_samples", type=int, default=0)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true", default=False)
+    p.add_argument("--compute_edt", action=BoolOpt, default=True)
+    _add_device(p)
+
+    # --- rt60bands ---
+    p = sub.add_parser("rt60bands", help="Band-limited RT60: Low/Mid/High T30 (optional T20/EDT).")
+    _add_input(p)
+    _add_output_noshow(p, "If provided, saves one PNG: <basename>_rt60bands.png", underscore=True)
+    p.add_argument("--band_mode", type=str, default="three", choices=["three", "octave", "third"])
+    p.add_argument("--f_min_hz", type=float, default=31.5)
+    p.add_argument("--f_max_hz", type=float, default=16000.0)
+    p.add_argument("--legend_values", action=BoolOpt, default=None)
+    p.add_argument("--low_upper_hz", type=float, default=250.0)
+    p.add_argument("--mid_center_hz", type=float, default=1000.0)
+    p.add_argument("--mid_width_octaves", type=float, default=2.0)
+    p.add_argument("--high_lower_hz", type=float, default=4000.0)
+    p.add_argument("--transition_width_octaves", type=float, default=1.0 / 6.0)
+    p.add_argument("--include_t20", action="store_true")
+    p.add_argument("--include_edt", action="store_true")
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action="store_true", default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--edc_floor_db", type=float, default=-120.0)
+    p.add_argument("--fit_lower_limit_db", type=float, default=-80.0)
+    p.add_argument("--smoothing", dest="edc_smoothing_window_samples", type=int, default=0)
+    _add_device(p)
+
+    # --- fr ---
+    p = sub.add_parser("fr", help="Magnitude spectrum (dB) vs frequency.")
+    _add_input(p)
+    _add_output_noshow(p, "If provided, saves a PNG: <basename>_fr.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--magnitude_floor_db", type=float, default=-120.0)
+    p.add_argument("--f_min_hz", type=float, default=20.0)
+    p.add_argument("--f_max_hz", type=float, default=20000.0)
+    p.add_argument("--smoothing_log_bins", type=int, default=0)
+    p.add_argument("--log_bins_per_octave", type=int, default=96)
+    p.add_argument("--no_hann_window", action="store_true")
+    p.add_argument("--exact-grid", dest="exact_grid", action="store_true",
+                   help="Host fallback on the reference's exact FFT grid (not yet ported).")
+    _add_device(p)
+
+    # --- spectrogram ---
+    p = sub.add_parser("spectrogram", help="Time-frequency magnitude spectrogram.")
+    _add_input(p)
+    _add_output_noshow(p, "Saves PNG(s): <basename>_spectrogram_<CH>.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--n_fft", type=int, default=4096)
+    p.add_argument("--hop_length", type=int, default=512)
+    p.add_argument("--no_hann_window", action="store_true")
+    p.add_argument("--floor_db", type=float, default=-120.0)
+    p.add_argument("--f_min_hz", type=float, default=20.0)
+    p.add_argument("--f_max_hz", type=float, default=20000.0)
+    p.add_argument("--dynamic_range_db", type=float, default=90.0,
+                   help="Color scale range below max (default: 90). 0 -> percentiles.")
+    p.add_argument("--renderer", type=str, choices=["image", "quadmesh"], default="image",
+                   help="Figure renderer (figures: not yet ported).")
+    _add_device(p)
+
+    # --- diffusion ---
+    p = sub.add_parser("diffusion",
+                       help="Diffusion metrics over time: autocorr, echo density, decorrelation.")
+    _add_input(p)
+    _add_output_noshow(p, "If provided, saves one PNG: <basename>_diffusion.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--window_seconds", type=float, default=0.050)
+    p.add_argument("--hop_seconds", type=float, default=0.010)
+    p.add_argument("--max_lag_milliseconds", type=float, default=10.0)
+    p.add_argument("--echo_density_threshold_rms", type=float, default=1.0)
+    p.add_argument("--echo_density_normalise_to_gaussian", action=BoolOpt, default=True)
+    _add_device(p)
+
+    # --- waterfall ---
+    p = sub.add_parser("waterfall", help="Waterfall (CSD-style): spectral slices over time.")
+    _add_input(p)
+    _add_output_noshow(p, "Saves PNG(s): <basename>_waterfall_<CH>.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--n_fft", type=int, default=4096)
+    p.add_argument("--hop_length", type=int, default=512)
+    p.add_argument("--no_hann_window", action="store_true")
+    p.add_argument("--f_min_hz", type=float, default=20.0)
+    p.add_argument("--f_max_hz", type=float, default=20000.0)
+    p.add_argument("--style", type=str, choices=["3d", "2d"], default="3d")
+    p.add_argument("--slice_mode", type=str, choices=["auto", "uniform_time", "uniform_frames"],
+                   default="auto")
+    p.add_argument("--num_slices", type=int, default=18)
+    p.add_argument("--slice_spacing_seconds", type=float, default=0.05)
+    p.add_argument("--start_time_seconds", type=float, default=0.0)
+    p.add_argument("--end_time_seconds", type=float, default=None)
+    p.add_argument("--db_reference", type=str, choices=["global_max", "slice_max"],
+                   default="global_max")
+    p.add_argument("--dynamic_range_db", type=float, default=80.0)
+    p.add_argument("--floor_db", type=float, default=-120.0)
+    p.add_argument("--smoothing_log_bins", type=int, default=0)
+    p.add_argument("--log_bins_per_octave", type=int, default=96)
+    p.add_argument("--elev_deg", type=float, default=30.0)
+    p.add_argument("--azim_deg", type=float, default=-60.0)
+    p.add_argument("--ridge_offset_db", type=float, default=6.0)
+    _add_device(p)
+
+    # --- modalcloud ---
+    p = sub.add_parser("modalcloud",
+                       help="Modal cloud: frequency vs RT60 points from per-bin STFT decay fits.")
+    _add_input(p)
+    _add_output_noshow(p, "Saves PNG(s): <basename>_modalcloud_<CH>.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--n_fft", type=int, default=8192)
+    p.add_argument("--hop_length", type=int, default=512)
+    p.add_argument("--no_hann_window", action="store_true")
+    p.add_argument("--f_min_hz", type=float, default=20.0)
+    p.add_argument("--f_max_hz", type=float, default=20000.0)
+    p.add_argument("--metric", type=str, choices=["t30", "t20", "edt"], default="t30")
+    p.add_argument("--log_bins_per_octave", type=int, default=24)
+    p.add_argument("--min_bins", type=int, default=24)
+    p.add_argument("--fit_lower_limit_db", type=float, default=-80.0)
+    p.add_argument("--min_fit_points", type=int, default=10)
+    p.add_argument("--min_peak_db_above_floor", type=float, default=20.0)
+    p.add_argument("--floor_db", type=float, default=-120.0)
+    p.add_argument("--show_median_curve", action=BoolOpt, default=True)
+    p.add_argument("--median_octave_window", type=float, default=0.25)
+    p.add_argument("--ylim_seconds_min", type=float, default=None)
+    p.add_argument("--ylim_seconds_max", type=float, default=None)
+    _add_device(p)
 
 
 def _check_args(cmd: str, args: argparse.Namespace) -> None:
@@ -234,8 +441,14 @@ def _check_args(cmd: str, args: argparse.Namespace) -> None:
         )
 
 
+# the per-file subcommands that draw a figure (deconvolve draws none)
+FIGURE_COMMANDS = ("decay", "rt60bands", "fr", "groupdelay", "spectrogram", "diffusion", "waterfall", "modalcloud")
+
+
 def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
-    """The first flag (or path) of `cmd` that the port does not have yet."""
+    """The first flag (or path) of `cmd` that the port does not have yet.
+    `--plot-processes` is accepted and ignored where the JAX CLI ignores
+    it: on the engine paths, which draw nothing."""
     refused = (
         ("--multi-host", getattr(args, "multi_host", False)),
         ("--coordinator", getattr(args, "coordinator", None) is not None),
@@ -244,13 +457,17 @@ def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
         ("--tap-shard", getattr(args, "tap_shard", None) is not None),
         ("--resume", getattr(args, "resume", False)),
         ("--plots", getattr(args, "watch_plots", False)),
-        ("--plot-processes", bool(getattr(args, "plot_processes", 0))),
+        ("--output", getattr(args, "output_basename", None) is not None),
+        ("--exact-grid", getattr(args, "exact_grid", False)),
     )
     for flag, given in refused:
         if given:
             return flag
     if cmd in ("bundle", "batch") and not args.no_plots:
         return f"{cmd} without --no-plots (the plot reports)"
+    if cmd in FIGURE_COMMANDS and not args.no_show:
+        flag = "--no-show" if cmd == "groupdelay" else "--no_show"
+        return f"{cmd} without {flag} (the figures)"
     return None
 
 
@@ -280,6 +497,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             f"analyse {cmd}: CUDA is not available; pass --device cpu to run the "
             "plain torch versions on the host"
         )
+
+    if cmd == "deconvolve" or cmd in FIGURE_COMMANDS:
+        _run_per_file(cmd, args, device)
+        return
 
     if cmd == "watch":
         from audio_analysis_tpu_torch.report.watch import WatchSettings, watch_bundle_runs
@@ -320,6 +541,199 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.compare_to and bool(args.fail_on_change) and index_has_flagged_changes(index):
         print("Changes flagged vs previous run (see the index) — exiting 3.")
         raise SystemExit(3)
+
+
+def _maybe_write_json(args: argparse.Namespace, results) -> None:
+    if args.json_path:
+        from audio_analysis_tpu_torch.utils import write_results_json
+
+        print(f"Wrote JSON: {write_results_json(args.json_path, results)}")
+
+
+def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> None:
+    """One per-file subcommand: the analysis on `device`, then the JAX
+    CLI's stdout (the JSON line first, then the summary)."""
+    from audio_analysis_tpu_torch import analyses as an
+
+    path = str(getattr(args, "input_wav_file_path", ""))
+    if cmd == "deconvolve":
+        output_path = args.output_ir_wav_file_path
+        if output_path is None:
+            output_path = str(an.deconvolve.default_output_ir_path(args.recorded_wav_file_path))
+        result = an.deconvolve.deconvolve_from_wav_files(
+            recorded_wav_file_path=str(args.recorded_wav_file_path),
+            sweep_wav_file_path=str(args.sweep_wav_file_path),
+            settings=an.deconvolve.DeconvolveSettings(
+                regularization_relative=float(args.regularization_relative),
+                normalise_peak=bool(args.normalise_peak),
+                target_peak=float(args.target_peak),
+                remove_dc=bool(args.remove_dc),
+                output_length_mode=str(args.output_length_mode),
+            ),
+            output_ir_wav_file_path=output_path,
+            device=device,
+        )
+        print(f"Wrote IR WAV: {output_path}")
+        print(f"  sample_rate_hz={result.sample_rate_hz}")
+        print(f"  channels={result.samples.shape[1]}")
+        print(f"  length_seconds={result.samples.shape[0] / float(result.sample_rate_hz):.3f}")
+        return
+
+    if cmd in ("decay", "rt60bands"):
+        edt = bool(args.compute_edt) if cmd == "decay" else bool(args.include_edt)
+        decay_settings = an.decay.DecayAnalysisSettings(
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            edc_floor_db=float(args.edc_floor_db),
+            fit_lower_limit_db=float(args.fit_lower_limit_db),
+            edc_smoothing_window_samples=int(args.edc_smoothing_window_samples),
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            compute_edt=edt,
+        )
+        if cmd == "decay":
+            results = an.decay.analyse_decay_from_wav_file(path, decay_settings, device=device)
+            text = an.decay.summarise_decay_results_text(results)
+        else:
+            settings = an.rt60bands.Rt60BandsAnalysisSettings(
+                band_mode=str(args.band_mode),
+                low_upper_hz=float(args.low_upper_hz),
+                mid_center_hz=float(args.mid_center_hz),
+                mid_width_octaves=float(args.mid_width_octaves),
+                high_lower_hz=float(args.high_lower_hz),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                transition_width_octaves=float(args.transition_width_octaves),
+                include_t20=bool(args.include_t20),
+                include_edt=bool(args.include_edt),
+                decay_settings=decay_settings,
+            )
+            results = an.rt60bands.analyse_rt60_bands_from_wav_file(path, settings, device=device)
+            text = an.rt60bands.summarise_rt60_bands_results_text(
+                results, include_t20=settings.include_t20, include_edt=settings.include_edt
+            )
+    elif cmd == "fr":
+        results = an.frequency_response.analyse_frequency_response_from_wav_file(
+            path,
+            an.frequency_response.FrequencyResponseAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                use_hann_window=not bool(args.no_hann_window),
+                magnitude_floor_db=float(args.magnitude_floor_db),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                smoothing_log_bins=int(args.smoothing_log_bins),
+                log_bins_per_octave=int(args.log_bins_per_octave),
+            ),
+            device=device,
+        )
+        text = an.frequency_response.summarise_frequency_response_results_text(results)
+    elif cmd == "groupdelay":
+        results = an.group_delay.analyse_group_delay_from_wav_file(
+            path,
+            an.group_delay.GroupDelayAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                fft_size=args.fft_size,
+                smoothing_bins=int(args.smoothing_bins),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+            ),
+            device=device,
+        )
+        text = an.group_delay.summarise_group_delay_results_text(results)
+    elif cmd == "spectrogram":
+        dyn = float(args.dynamic_range_db)
+        results = an.spectrogram.analyse_spectrogram_from_wav_file(
+            path,
+            an.spectrogram.SpectrogramAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                n_fft=int(args.n_fft),
+                hop_length=int(args.hop_length),
+                use_hann_window=not bool(args.no_hann_window),
+                floor_db=float(args.floor_db),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                dynamic_range_db=None if dyn <= 0.0 else dyn,
+            ),
+            device=device,
+        )
+        text = an.spectrogram.summarise_spectrogram_results_text(results)
+    elif cmd == "diffusion":
+        results = an.diffusion.analyse_diffusion_from_wav_file(
+            path,
+            an.diffusion.DiffusionAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                window_seconds=float(args.window_seconds),
+                hop_seconds=float(args.hop_seconds),
+                max_lag_milliseconds=float(args.max_lag_milliseconds),
+                echo_density_threshold_rms=float(args.echo_density_threshold_rms),
+                echo_density_normalise_to_gaussian=bool(args.echo_density_normalise_to_gaussian),
+            ),
+            device=device,
+        )
+        text = an.diffusion.summarise_diffusion_results_text(results)
+    elif cmd == "waterfall":
+        results = an.waterfall.analyse_waterfall_from_wav_file(
+            path,
+            an.waterfall.WaterfallAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                n_fft=int(args.n_fft),
+                hop_length=int(args.hop_length),
+                use_hann_window=not bool(args.no_hann_window),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                slice_mode=str(args.slice_mode),
+                num_slices=int(args.num_slices),
+                slice_spacing_seconds=float(args.slice_spacing_seconds),
+                start_time_seconds=float(args.start_time_seconds),
+                end_time_seconds=args.end_time_seconds,
+                db_reference=str(args.db_reference),
+                smoothing_log_bins=int(args.smoothing_log_bins),
+                log_bins_per_octave=int(args.log_bins_per_octave),
+                dynamic_range_db=float(args.dynamic_range_db),
+                floor_db=float(args.floor_db),
+            ),
+            device=device,
+        )
+        text = an.waterfall.summarise_waterfall_results_text(results)
+    else:  # modalcloud
+        results = an.modalcloud.analyse_modal_cloud_from_wav_file(
+            path,
+            an.modalcloud.ModalCloudAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                n_fft=int(args.n_fft),
+                hop_length=int(args.hop_length),
+                use_hann_window=not bool(args.no_hann_window),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                log_bins_per_octave=int(args.log_bins_per_octave),
+                min_bins=int(args.min_bins),
+                metric=str(args.metric),
+                fit_lower_limit_db=float(args.fit_lower_limit_db),
+                min_fit_points=int(args.min_fit_points),
+                min_peak_db_above_floor=float(args.min_peak_db_above_floor),
+                floor_db=float(args.floor_db),
+            ),
+            device=device,
+        )
+        text = an.modalcloud.summarise_modal_cloud_results_text(results)
+    _maybe_write_json(args, results)
+    print(text)
 
 
 if __name__ == "__main__":

@@ -17,10 +17,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from audio_analysis_tpu_torch.ops.common import next_pow2
-from audio_analysis_tpu_torch.ops.stft import frame_signal
+from audio_analysis_tpu_torch.ops.stft import frame_signal, num_frames_static
 
 
 class DiffusionSeries(NamedTuple):
@@ -134,3 +135,23 @@ def stereo_diffusion_metrics(
         corr0=torch.where(invalid, math.nan, corr0),
         iacc_max=torch.where(invalid, math.nan, iacc),
     )
+
+
+def stereo_diffusion_metrics_rows(
+    samples: torch.Tensor,
+    length: torch.Tensor,
+    win: int,
+    hop: int,
+    max_lag: int,
+) -> StereoDiffusionSeries:
+    """`stereo_diffusion_metrics` on the (..., 2, N) aligned L/R row layout
+    (the left row's length governs both)."""
+    return stereo_diffusion_metrics(
+        samples[..., 0:1, :], samples[..., 1:2, :], length[..., 0:1], win, hop, max_lag
+    )
+
+
+def diffusion_frame_times(n: int, win: int, hop: int, sample_rate_hz: int) -> np.ndarray:
+    """Host-side window-centre times of the `n`-sample framing."""
+    t = num_frames_static(n, win, hop)
+    return ((np.arange(t) * hop + 0.5 * win) / float(sample_rate_hz)).astype(np.float32)

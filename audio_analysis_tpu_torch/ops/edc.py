@@ -1,7 +1,8 @@
 """
 Schroeder energy decay curve (audio_analysis_tpu/ops/edc.py): backwards-
-integrated energy, epsilon floor, 0 dB at the segment start, display floor,
-0 past the valid length. Batched over leading dims.
+integrated energy, epsilon floor, 0 dB at the segment start, optional
+dB-domain box smoothing, display floor, 0 past the valid length. Batched
+over leading dims.
 
 `schroeder_edc_db` is the wrapper of kernel K1 (csrc/edc.cu, the Hopper
 counterpart of the TPU kernel ops/pallas_kernels.py:schroeder_edc_db_pallas):
@@ -11,12 +12,13 @@ torch version `schroeder_edc_db_plain` beside it.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from audio_analysis_tpu_torch import _build
-from audio_analysis_tpu_torch.ops.common import bool_valid_mask, db_from_power
+from audio_analysis_tpu_torch.ops.common import bool_valid_mask, box_smooth_same, db_from_power
 
 EDC_KERNEL = _build.LaunchCounter("edc")
 
@@ -85,17 +87,29 @@ def schroeder_edc_db(
     length: torch.Tensor,
     edc_epsilon: float = 1e-20,
     edc_floor_db: float = -120.0,
+    smoothing_window_samples: int = 0,
 ) -> EdcResult:
     """
     samples: (..., N) analysis segment starting at index 0 (see ops.trim),
     zero past `length`. Returns the EDC in dB with the reference's
     conventions, and the valid length broadcast over the batch dims.
+
+    A smoothing window > 1 box-filters the unfloored dB curve (masked to 0
+    past `length`) before the floor, in the JAX package's order. K1 fuses
+    the floor, so it runs with a floor of -inf there; its eps clamp keeps
+    the unfloored curve finite.
     """
+    smooth = smoothing_window_samples is not None and int(smoothing_window_samples) > 1
+    floor_db = -math.inf if smooth else edc_floor_db
     if samples.device.type == "cuda":
-        edc_db = schroeder_edc_db_cuda(samples, length, edc_epsilon, edc_floor_db)
+        edc_db = schroeder_edc_db_cuda(samples, length, edc_epsilon, floor_db)
     elif samples.device.type == "cpu":
-        edc_db = schroeder_edc_db_plain(samples, length, edc_epsilon, edc_floor_db)
+        edc_db = schroeder_edc_db_plain(samples, length, edc_epsilon, floor_db)
     else:
         raise ValueError(f"unsupported device {samples.device}")
+    if smooth:
+        mask = bool_valid_mask(samples.shape[-1], length)
+        edc_db = box_smooth_same(torch.where(mask, edc_db, 0.0), int(smoothing_window_samples))
+        edc_db = torch.where(mask, torch.clamp(edc_db, min=edc_floor_db), 0.0)
     length_b = torch.broadcast_to(length.to(torch.int32), samples.shape[:-1])
     return EdcResult(edc_db, length_b)

@@ -8,8 +8,15 @@ start.
 counterpart of the TPU kernel ops/pallas_stft.py:stft_magnitude_pallas): on
 a CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
 torch version `stft_magnitude_plain` beside it (unfold x window -> rfft ->
-abs). The JAX package's matmul FFT (ops/mxfft.py) exists for the TPU's
-matrix unit and has no counterpart here.
+abs). K2 takes the power-of-two n_fft from 256 to 16384; any other n_fft
+(the JAX package and the reference take any size, e.g. --n_fft 3000) goes
+through `stft_magnitude_plain` on the tensor's own device. That route is
+chosen from n_fft alone, before any launch; a failure of K2 at one of its
+own sizes raises. The JAX package's matmul FFT (ops/mxfft.py) exists for
+the TPU's matrix unit and has no counterpart here.
+
+`stft_mag_db` is the per-file analyses' dB plane: K2 with the dB floor as
+its linear floor and every bin, then 20 log10, invalid frames at the floor.
 """
 
 from __future__ import annotations
@@ -21,11 +28,17 @@ import numpy as np
 import torch
 
 from audio_analysis_tpu_torch import _build
+from audio_analysis_tpu_torch.ops.common import db_from_magnitude
 
 STFT_KERNEL = _build.LaunchCounter("stft")
 
 MIN_N_FFT = 256
 MAX_N_FFT = 16384
+
+
+class StftResult(NamedTuple):
+    mag_db: torch.Tensor  # (..., T, F) float32, dB; invalid frames at floor_db
+    num_frames: torch.Tensor  # (...,) int32 frames fully inside the valid length
 
 
 class StftLinearResult(NamedTuple):
@@ -146,11 +159,16 @@ def stft_magnitude_cuda(
     return out.reshape(batch_shape + (t, k))
 
 
+def kernel_takes(n_fft: int) -> bool:
+    """Whether K2 has an instance for this n_fft: a power of two from
+    MIN_N_FFT to MAX_N_FFT."""
+    return MIN_N_FFT <= n_fft <= MAX_N_FFT and not n_fft & (n_fft - 1)
+
+
 def _check_n_fft(n_fft: int) -> None:
-    if n_fft < MIN_N_FFT or n_fft > MAX_N_FFT or n_fft & (n_fft - 1):
-        raise NotImplementedError(
-            f"n_fft={n_fft} is not yet ported: the STFT takes powers of two "
-            f"from {MIN_N_FFT} to {MAX_N_FFT}"
+    if not kernel_takes(n_fft):
+        raise ValueError(
+            f"the STFT kernel takes powers of two from {MIN_N_FFT} to {MAX_N_FFT}, got n_fft={n_fft}"
         )
 
 
@@ -169,12 +187,31 @@ def stft_magnitude(
     Consumers that aggregate in linear magnitude convert to dB once after
     aggregation.
     """
-    _check_n_fft(n_fft)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" and kernel_takes(n_fft):
         mag = stft_magnitude_cuda(x, length, n_fft, hop, use_hann_window, floor_lin, k_out)
-    elif x.device.type == "cpu":
+    elif x.device.type in ("cuda", "cpu"):
         mag = stft_magnitude_plain(x, length, n_fft, hop, use_hann_window, floor_lin, k_out)
     else:
         raise ValueError(f"unsupported device {x.device}")
     valid = _frame_valid(mag.shape[-2], hop, n_fft, length)
     return StftLinearResult(mag, valid.sum(dim=-1, dtype=torch.int32))
+
+
+def stft_mag_db(
+    x: torch.Tensor,
+    length: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    use_hann_window: bool = True,
+    floor_db: float = -120.0,
+) -> StftResult:
+    """
+    x: (..., N) analysis segment starting at index 0, zeros past `length`.
+    Returns mag_db (..., T, F) = 20 log10(max(|STFT|, 10^(floor_db/20)))
+    with frames past the valid region set to floor_db, and the valid frame
+    count (audio_analysis_tpu/ops/stft.py:stft_mag_db).
+    """
+    res = stft_magnitude(x, length, n_fft, hop, use_hann_window, 10.0 ** (floor_db / 20.0))
+    valid = _frame_valid(res.mag.shape[-2], hop, n_fft, length)
+    mag_db = torch.where(valid[..., None], db_from_magnitude(res.mag, floor_db), floor_db)
+    return StftResult(mag_db, res.num_frames)

@@ -46,6 +46,14 @@ def shift_to(x: torch.Tensor, start: torch.Tensor, length: torch.Tensor) -> Alig
     return AlignedSignal(torch.where(keep, shifted, 0.0), new_length, start_b)
 
 
+def shift_bands_to(x: torch.Tensor, start: torch.Tensor, length: torch.Tensor) -> AlignedSignal:
+    """`shift_to` over a (..., bands, N) plane with per-(...) start and
+    length shared across the bands axis."""
+    start_b = torch.broadcast_to(start[..., None], x.shape[:-1])
+    length_b = torch.broadcast_to(length[..., None], x.shape[:-1])
+    return shift_to(x, start_b, length_b)
+
+
 def align_for_analysis(
     x: torch.Tensor,
     length: torch.Tensor,

@@ -176,7 +176,11 @@ def watch_bundle_runs(
     written: List[Path] = []
 
     def save_state() -> None:
-        _save_state(root, {"analyzed": analyzed, "failures": failures, "last_metrics": last_metrics})
+        # every other key (the JAX watcher's plot_sigs / plot_sigs_settings
+        # figure-skip cache) is written back unchanged
+        _save_state(
+            root, {**state, "analyzed": analyzed, "failures": failures, "last_metrics": last_metrics}
+        )
 
     log(f"watching {root} (poll {settings.poll_seconds:g}s; Ctrl-C to stop)")
     while True:

@@ -51,12 +51,31 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      and the `compare` subcommand, `batch --no-plots` over 4 tap WAVs
      (agrees with the bundle run), and `watch --max-bundles 2` over two
      copies of a 4-tap bundle with one tap re-recorded (two indexes, the
-     second flagging a change, two event-log lines).
+     second flagging a change, two event-log lines);
+  8. the per-file subcommands through the CLI entry on the card
+     (`<cmd> --input X.wav --no_show --json out.json`): decay (also
+     --smoothing 480), rt60bands (three, octave, third), fr, groupdelay,
+     spectrogram (also --n_fft 3000), diffusion, waterfall, modalcloud
+     (also --n_fft 32768) on a 2^20-sample stereo tap of the bundle, the
+     eight analyses again on examples/gallery/verb_ir.wav, and deconvolve
+     of a 2^20-sample log sweep played through the tap. Each runs cold,
+     warm, and with the plain versions swapped in; the kernel run and the
+     plain run agree (summaries within the per-module tolerances of
+     tests/test_reference_parity.py, the same JSON keys, the same IR WAV),
+     and the launches of K1 and K2 in one run are exactly as expected
+     (decay and rt60bands K1 once, spectrogram, waterfall and modalcloud K2
+     once, K2 never at n_fft 3000 or 32768). The eight analyses of the
+     golden IR (tests/golden_utils.py) on the card agree with the reference
+     tool's vendored summaries (tests/golden/reference/*.txt). The per-file
+     shapes of K1 ((2, 2^20) and three bands x stereo (6, 2^20)) and of K2
+     ((2, 2^20) at (4096, 512) and (8192, 512), every bin) are checked and
+     timed in phase 2 under the kernels line's `shapes` with
+     "path": "per_file".
 
 The port's path must not load jax, matplotlib or the JAX package
-(audio_analysis_tpu). The last lines are the kernels' JSON, the card's name
-and power limit, and {"ok": true, "device": {...}}. There is no CPU fallback: without CUDA the
-script exits non-zero at once.
+(audio_analysis_tpu). The last lines are the per-file JSON, the kernels'
+JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+There is no CPU fallback: without CUDA the script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -81,6 +100,16 @@ MAIN_PATH = "bundle"
 # K1's planes under --bands-decimate at N = 2^20: (16, N/32) and (16, N/4)
 # per three-band chunk of 8 stereo taps, (12, N/64) per third-octave tap
 DECIMATED_EDC_SHAPES = ((16, N // 32), (16, N // 4), (12, N // 64))
+# K1's planes of the per-file commands on a stereo 2^20 tap: decay, and
+# rt60bands' three bands x stereo
+PER_FILE_EDC_SHAPES = ((2, N), (6, N))
+# per-module (rel, abs) summary tolerances of tests/test_reference_parity.py
+SUMMARY_TOLERANCES = {
+    "decay": (1e-3, 1e-3), "rt60bands": (1e-3, 2e-3), "fr": (5e-3, 1.0), "spectrogram": (1e-3, 0.5),
+    "waterfall": (1e-3, 0.5), "modalcloud": (1e-2, 2e-3), "diffusion": (2e-2, 0.02), "groupdelay": (2e-2, 5.0),
+}
+# the fixture file of each per-file command under tests/golden/reference/
+FIXTURES = {"fr": "frequency_response", "groupdelay": "group_delay"}
 
 
 def log(msg: str) -> None:
@@ -222,8 +251,11 @@ def check_edc(torch, edc, dev, g):
             f"plain {p:.3f} ms, bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
     # the decimated band planes of `--bands-decimate` (factors 32, 4 and 1
     # at 2^20): a three-band chunk's Low and Mid groups, and third-octave's
-    # smallest group of one tap (6 bands at k = 64). Same checks and bound.
-    for rows, n in DECIMATED_EDC_SHAPES:
+    # smallest group of one tap (6 bands at k = 64); and the per-file
+    # commands' planes of one stereo tap. Same checks and bound.
+    other = [(r, n, "bands_decimate") for r, n in DECIMATED_EDC_SHAPES]
+    other += [(r, n, "per_file") for r, n in PER_FILE_EDC_SHAPES]
+    for rows, n, path in other:
         t = torch.arange(n, dtype=torch.float32)
         xr = (0.01 * torch.randn(rows, n, generator=g) * torch.exp(-t / (30000.0 * n / N))).to(dev)
         lr = torch.randint(n // 2, n + 1, (rows,), generator=g, dtype=torch.int32)
@@ -235,23 +267,27 @@ def check_edc(torch, edc, dev, g):
         k_run = time_back_to_back_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
         p = time_ms(lambda: edc.schroeder_edc_db_plain(xr, lr))
         b, by = bound(rows * n * 4 * 2 + rows * 4, rows * n * 4.0)
-        shapes.append({"shape": [rows, n], "path": "bands_decimate", "ms": k, "plain_ms": p, "bound_ms": b,
+        shapes.append({"shape": [rows, n], "path": path, "ms": k, "plain_ms": p, "bound_ms": b,
                        "bound_by": by, "library_ms": None, "ms_back_to_back": k_run})
-        log(f"K1 edc ({rows}, {n}) [--bands-decimate]: kernel {k:.3f} ms ({k_run:.3f} ms a call back to "
+        log(f"K1 edc ({rows}, {n}) [{path}]: kernel {k:.3f} ms ({k_run:.3f} ms a call back to "
             f"back), plain {p:.3f} ms, bound {b:.4f} ms ({by}), {b / k:.0%} of bound")
     return worst, shapes
 
 
 def check_stft(torch, stft, dev, g, k_out):
     """K2 against its plain version; returns (max abs err, per-shape
-    timings)."""
+    timings). The main path's calls are one 8-tap chunk's (16 rows); the
+    per-file commands' are one stereo tap's (2 rows) with every bin."""
     worst = 0.0
     shapes = []
-    x = torch.randn(16, N, generator=g).to(dev)
-    lengths = torch.full((16,), N, dtype=torch.int32, device=dev)
-    lengths[3] = 500_000
+    x16 = torch.randn(16, N, generator=g).to(dev)
     floor_lin = 10.0 ** (-120.0 / 20.0)
-    for n_fft, hop, kk in ((4096, 512, None), (8192, 512, k_out)):
+    calls = ((16, 4096, 512, None, None), (16, 8192, 512, k_out, None),
+             (2, 4096, 512, None, "per_file"), (2, 8192, 512, None, "per_file"))
+    for rows, n_fft, hop, kk, path in calls:
+        x = x16[:rows]
+        lengths = torch.full((rows,), N, dtype=torch.int32, device=dev)
+        lengths[min(3, rows - 1)] = 500_000
         got = stft.stft_magnitude_cuda(x, lengths, n_fft, hop, True, floor_lin, kk)
         ref = stft.stft_magnitude_plain(x, lengths, n_fft, hop, True, floor_lin, kk)
         torch.cuda.synchronize()
@@ -272,10 +308,11 @@ def check_stft(torch, stft, dev, g, k_out):
         rows, frames, bins = got.shape
         nbytes = x.numel() * 4 + rows * 4 + n_fft * 4 + (n_fft // 2 + 1) * 8 + got.numel() * 4
         b, by = bound(nbytes, rows * frames * 2.5 * n_fft * math.log2(n_fft))
-        shapes.append({"shape": [rows, N, n_fft, hop, bins], "ms": k, "plain_ms": p, "bound_ms": b,
-                       "bound_by": by, "library_ms": lib})
+        shape = {"shape": [rows, N, n_fft, hop, bins], "ms": k, "plain_ms": p, "bound_ms": b,
+                 "bound_by": by, "library_ms": lib}
+        shapes.append(shape if path is None else {**shape, "path": path})
         log(
-            f"K2 stft (16, {N}) n_fft={n_fft} hop={hop} k_out={kk}: shape {tuple(got.shape)} "
+            f"K2 stft ({rows}, {N}) n_fft={n_fft} hop={hop} k_out={kk}: shape {tuple(got.shape)} "
             f"max err {err:.3g} (rel {rel:.3g}); kernel {k:.3f} ms, plain {p:.3f} ms, "
             f"torch.stft+abs {lib:.3f} ms ({lib / k:.2f}x the kernel's speed), "
             f"bound {b:.3f} ms ({by}), {b / k:.0%} of bound"
@@ -685,6 +722,156 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
     return out
 
 
+def read_launches(counters, fn):
+    """fn() with every kernel's launch counter set to 0 just before and read
+    just after; the counts, whatever they are."""
+    for counter in counters:
+        counter.launches = 0
+    result = fn()
+    return result, {c.name: c.launches for c in counters}
+
+
+def write_sweep_inputs(out: Path, tap: Path) -> tuple:
+    """A 2^20-sample log sweep (20 Hz - 20 kHz, half-cosine fades) as a mono
+    PCM16 WAV, and the sweep played through the stereo tap (float64 FFT
+    convolution, full length, peak 0.5) as a stereo PCM16 WAV."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch.io.wav import load_wav_file, write_wav_pcm16
+
+    t = np.arange(N, dtype=np.float64) / SR
+    k = math.log(20000.0 / 20.0)
+    sweep = 0.5 * np.sin(2.0 * math.pi * 20.0 * (N / SR) / k * (np.exp(t / (N / SR) * k) - 1.0))
+    ramp = 0.5 - 0.5 * np.cos(np.pi * np.arange(4096) / 4096)
+    sweep[:4096] *= ramp
+    sweep[-4096:] *= ramp[::-1]
+    ir = load_wav_file(tap).samples.astype(np.float64)
+    n_out = N + ir.shape[0] - 1
+    n_fft = 1 << (n_out - 1).bit_length()
+    rec = np.fft.irfft(np.fft.rfft(sweep, n_fft)[:, None] * np.fft.rfft(ir, n_fft, axis=0), n_fft, axis=0)[:n_out]
+    rec *= 0.5 / np.abs(rec).max()
+    write_wav_pcm16(out / "sweep.wav", sweep.astype(np.float32), SR)
+    write_wav_pcm16(out / "recorded.wav", rec.astype(np.float32), SR)
+    return out / "sweep.wav", out / "recorded.wav"
+
+
+def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_path: dict) -> dict:
+    """Phase 8: the per-file subcommands through the CLI entry on the card,
+    each cold, warm (once more under torch.profiler for the device-busy
+    time, on the bundle tap) and with the plain versions swapped in; the
+    kernel run against the plain run, K1 / K2 launches of one run against
+    the expected counts, and the golden IR's summaries on the card against
+    the reference tool's."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    # the tests' golden IR and comparisons (numpy and re only)
+    sys.path.insert(0, str(REPO / "tests"))
+    import golden_utils
+    from _summary_parity import assert_summaries_agree, json_skeleton
+
+    out_dir = REPO / "build" / "chip_smoke_per_file"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    tap = root / "taps" / "tap00.wav"
+    verb = REPO / "examples" / "gallery" / "verb_ir.wav"
+    sweep, recorded = write_sweep_inputs(out_dir, tap)
+
+    # (label, argv without --input / --json, input, expected (K1, K2) launches)
+    runs = [
+        ("decay", ["decay", "--no_show"], tap, (1, 0)),
+        ("decay --smoothing 480", ["decay", "--no_show", "--smoothing", "480"], tap, (1, 0)),
+        ("rt60bands", ["rt60bands", "--no_show"], tap, (1, 0)),
+        ("rt60bands --band_mode octave", ["rt60bands", "--no_show", "--band_mode", "octave"], tap, (1, 0)),
+        ("rt60bands --band_mode third", ["rt60bands", "--no_show", "--band_mode", "third"], tap, (1, 0)),
+        ("fr", ["fr", "--no_show"], tap, (0, 0)),
+        ("groupdelay", ["groupdelay", "--no-show"], tap, (0, 0)),
+        ("spectrogram", ["spectrogram", "--no_show"], tap, (0, 1)),
+        ("spectrogram --n_fft 3000", ["spectrogram", "--no_show", "--n_fft", "3000"], tap, (0, 0)),
+        ("diffusion", ["diffusion", "--no_show"], tap, (0, 0)),
+        ("waterfall", ["waterfall", "--no_show"], tap, (0, 1)),
+        ("modalcloud", ["modalcloud", "--no_show"], tap, (0, 1)),
+        ("modalcloud --n_fft 32768", ["modalcloud", "--no_show", "--n_fft", "32768"], tap, (0, 0)),
+    ]
+    runs += [(f"{argv[0]} verb_ir", argv, verb, want) for label, argv, _, want in runs if label == argv[0]]
+    runs.append(("deconvolve", ["deconvolve", "--recorded_wav_file_path", str(recorded),
+                                "--sweep_wav_file_path", str(sweep)], None, (0, 0)))
+
+    def run(argv):
+        """(wall seconds ending in a synchronize, stdout) of one CLI call."""
+        text = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            cli_main(argv)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, text.getvalue()
+
+    results = {}
+    for i, (label, argv, wav, want) in enumerate(runs):
+        def full(name):
+            if wav is None:
+                return argv + ["--output_ir_wav_file_path", str(out_dir / f"ir_{name}.wav")]
+            return [argv[0], "--input", str(wav), *argv[1:], "--json", str(out_dir / f"{i}_{name}.json")]
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (cold, kernel_out), launches = read_launches(counters, lambda: run(full("kernel")))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        if (launches["edc"], launches["stft"]) != want:
+            raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        warm, _ = run(full("kernel"))
+        busy = device_busy(torch, lambda: run(full("kernel"))) if wav != verb else None
+        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+            plain, plain_out = run(full("plain"))
+        if wav is None:
+            a = wavfile.read(out_dir / "ir_kernel.wav")[1]
+            b = wavfile.read(out_dir / "ir_plain.wav")[1]
+            if kernel_out.splitlines()[1:] != plain_out.splitlines()[1:] or not np.array_equal(a, b):
+                raise AssertionError("deconvolve: the kernel run and the plain run differ")
+            if not (np.all(np.isfinite(a)) and a.shape[1] == 2):
+                raise AssertionError(f"deconvolve: IR {a.shape} not finite stereo")
+        else:
+            cmd = argv[0]
+            assert_summaries_agree(
+                plain_out.split("\n", 1)[1], kernel_out.split("\n", 1)[1], *SUMMARY_TOLERANCES[cmd], label
+            )
+            ours = json.loads((out_dir / f"{i}_kernel.json").read_text())
+            ref = json.loads((out_dir / f"{i}_plain.json").read_text())
+            if json_skeleton(ours) != json_skeleton(ref):
+                raise AssertionError(f"{label}: JSON keys of the kernel run and the plain run differ")
+        launches_by_path[label] = launches
+        results[label] = {"cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
+                          "launches": launches}
+        if busy is not None:
+            results[label]["warm_profiled"] = busy
+        log(f"per-file {label}: cold {cold:.3f} s, warm {warm:.3f} s, plain {plain:.3f} s, "
+            f"peak {peak:.3f} GiB, launches {launches}; kernel run == plain run")
+        if busy is not None:
+            log(f"  warm under the profiler: {busy}")
+        if label == argv[0] and wav == tap:
+            log("  " + kernel_out.rstrip().replace("\n", "\n  "))
+
+    # the golden IR on the card against the reference tool's summaries
+    golden = out_dir / "golden.wav"
+    write_wav_pcm16(golden, golden_utils.make_golden_ir(), SR)
+    for cmd, tol in SUMMARY_TOLERANCES.items():
+        # the fixtures hold the analyses' default settings: decay without EDT
+        extra = ["--no-compute_edt"] if cmd == "decay" else []
+        _, text = run([cmd, "--input", str(golden), "--no-show" if cmd == "groupdelay" else "--no_show", *extra])
+        fixture = REPO / "tests" / "golden" / "reference" / f"{FIXTURES.get(cmd, cmd)}.txt"
+        assert_summaries_agree(fixture.read_text(), text, *tol, f"{cmd} golden IR vs reference")
+    log("per-file: the golden IR's eight summaries on the card agree with the reference tool's")
+    return results
+
+
 def main() -> int:
     if not (REPO / "audio_analysis_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -788,6 +975,11 @@ def main() -> int:
     fast = fast_path_commands(torch, cli_main, root, dev, counters, launches_by_path, cuda_json)
     phases["other_loads"]["third_decimated"] = fast.pop("third_decimated")
     phases["fast_path"] = fast
+
+    # 8. the per-file subcommands
+    t0 = time.perf_counter()
+    per_file = per_file_commands(torch, cli_main, root, dev, counters, launches_by_path)
+    phases["per_file_s"] = time.perf_counter() - t0
     phases["launches_by_path"] = launches_by_path
 
     banned = sorted(
@@ -813,6 +1005,7 @@ def main() -> int:
             numbers.append(k["library_ms"])
         if not all(math.isfinite(v) for v in numbers):
             raise AssertionError(f"non-finite measurement for {k['name']}")
+    print(json.dumps({"per_file": per_file}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

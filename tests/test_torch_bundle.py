@@ -16,6 +16,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
 
@@ -117,12 +118,17 @@ def test_bundle_metrics_json_agrees(reports):
 
 
 def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
+    """The bundle path and a per-file subcommand (with every analysis
+    module imported) load neither jax, matplotlib nor the JAX package."""
     root = _write_bench_bundle(tmp_path / "b", 2, 1 << 14)
+    tap = root / "taps" / "tap00.wav"
     code = (
         "import sys\n"
+        "import audio_analysis_tpu_torch.analyses\n"
         "from audio_analysis_tpu_torch.cli.analyse_cli import main\n"
         f"main(['bundle', '--input', {str(root)!r}, '--no-plots', '--device', 'cpu'])\n"
-        "bad = [m for m in ('jax', 'matplotlib') if m in sys.modules]\n"
+        f"main(['decay', '--input', {str(tap)!r}, '--no_show', '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'matplotlib', 'audio_analysis_tpu')]\n"
         "assert not bad, bad\n"
         "print('CLEAN')\n"
     )
@@ -133,6 +139,7 @@ def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert "Wrote bundle report index:" in proc.stdout and "CLEAN" in proc.stdout
+    assert "[left] analysis_start_sample_index=" in proc.stdout
     assert (root / "reports" / "bundle_metrics.json").exists()
 
 
@@ -151,7 +158,22 @@ def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
     ],
 )
 def test_cli_refuses_flags_not_yet_ported(argv, flag):
-    with pytest.raises(SystemExit) as exc:
-        torch_cli_main(argv + ["--device", "cpu"])
+    """Each flag is refused by name, except `--plot-processes` on the paths
+    that draw nothing (`bundle --no-plots`, `watch` without `--plots`): the
+    JAX CLI ignores it there, so the run is accepted and reaches the
+    engine."""
+    accepted = flag == "--plot-processes"
+    target = "watch_bundle_runs" if argv[0] == "watch" else "run_bundle_report_engine"
+    module = "audio_analysis_tpu_torch.report.watch" if argv[0] == "watch" else (
+        "audio_analysis_tpu_torch.cli.analyse_cli"
+    )
+    with mock.patch(f"{module}.{target}", return_value=Path("index.md")) as engine:
+        if accepted:
+            torch_cli_main(argv + ["--device", "cpu"])
+            assert engine.call_count == 1
+            return
+        with pytest.raises(SystemExit) as exc:
+            torch_cli_main(argv + ["--device", "cpu"])
     message = str(exc.value.code)
     assert "not yet ported" in message and flag in message
+    assert engine.call_count == 0

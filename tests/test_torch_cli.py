@@ -1,12 +1,14 @@
 """The port's CLI surface (audio_analysis_tpu_torch/cli/analyse_cli.py)
-against the JAX CLI's engine-path subcommands, and `batch` and
-`bundle --bands-decimate` end to end on the CPU against the JAX CLI.
+against the JAX CLI's engine-path and per-file subcommands, and `batch`
+and `bundle --bands-decimate` end to end on the CPU against the JAX CLI.
 
 - Every option of the JAX parser's bundle, batch, watch and compare
-  subcommands parses in the port's parser to the same destination and
-  value (so the same defaults), and is then either accepted, refused by
-  the JAX CLI's own argument validation with its message, or refused as
-  "not yet ported" by name. The port adds only `--device`.
+  subcommands, and of its nine per-file subcommands (decay, rt60bands, fr,
+  groupdelay, spectrogram, diffusion, waterfall, modalcloud, deconvolve),
+  parses in the port's parser to the same destination and value (so the
+  same defaults), and is then either accepted, refused by the JAX CLI's
+  own argument validation with its message, or refused as "not yet
+  ported" by name. The port adds only `--device`.
 - Without CUDA every subcommand that touches the device exits before any
   side effect unless `--device cpu` is given.
 - bundle_metrics.json of `batch --no-plots` and of `bundle --no-plots
@@ -41,6 +43,12 @@ REQUIRED = {
     "batch": ["--inputs", "a.wav", "--output", "unused", "--no-plots"],
     "watch": ["--input", "unused"],
     "compare": ["prev", "cur"],
+    "deconvolve": ["--recorded_wav_file_path", "r.wav", "--sweep_wav_file_path", "s.wav"],
+    "groupdelay": ["--input", "x.wav", "--no-show"],
+    **{
+        command: ["--input", "x.wav", "--no_show"]
+        for command in ("decay", "rt60bands", "fr", "spectrogram", "diffusion", "waterfall", "modalcloud")
+    },
 }
 VALUES = {"--tap-shard": ["0/2"], "--coordinator": ["host:1234"]}
 

@@ -1,6 +1,7 @@
 """GPU-only copies of the kernel comparisons: each CUDA kernel of the port
-against its plain torch version on the card, and the engine on the card
-against the engine on the CPU. Marked `cuda`; every test skips where
+against its plain torch version on the card, the engine on the card
+against the engine on the CPU, and the per-file analyses on the card
+against the same call on the CPU. Marked `cuda`; every test skips where
 torch.cuda.is_available() is false. JAX is not needed (the card's machine
 has none). On the card:
 
@@ -8,7 +9,8 @@ has none). On the card:
 
 Tolerances: EDC 0.02 dB above -100 dB, exact 0 past `length`; STFT
 max |err| / max(ref) < 1e-5; engine flags and counts exact, metrics as in
-tests/test_torch_engine.py.
+tests/test_torch_engine.py; per-file summaries as in
+tests/test_reference_parity.py (TOLERANCES).
 """
 
 import dataclasses
@@ -18,9 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+import golden_utils
+from _summary_parity import assert_summaries_agree
+from audio_analysis_tpu_torch.analyses import decay, modalcloud, rt60bands, spectrogram
+from audio_analysis_tpu_torch.analyses._common import FileDsp
 from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
 from audio_analysis_tpu_torch.engine.batch import band_masks
 from audio_analysis_tpu_torch.ops import edc, fftmask, stft
+from test_reference_parity import TOLERANCES
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +207,54 @@ def test_decimated_engine_kernels_match_plain_on_card(dev, band_mode):
         else:
             rtol = 1e-2 if key in ("modal_rt60", "modal_r2") else 1e-3
             np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-4, equal_nan=True, err_msg=key)
+
+
+# case -> (analysis, settings, summary, tolerance row, K1 and K2 launches)
+PER_FILE = {
+    "decay": (decay.analyse_decay_channels, decay.DecayAnalysisSettings(compute_edt=True),
+              decay.summarise_decay_results_text, "decay", (1, 0)),
+    "decay_smoothing_480": (decay.analyse_decay_channels, decay.DecayAnalysisSettings(edc_smoothing_window_samples=480),
+                            decay.summarise_decay_results_text, "decay", (1, 0)),
+    "rt60bands": (rt60bands.analyse_rt60_bands_channels, rt60bands.Rt60BandsAnalysisSettings(include_t20=True),
+                  lambda r: rt60bands.summarise_rt60_bands_results_text(r, True, False), "rt60bands", (1, 0)),
+    "rt60bands_third": (rt60bands.analyse_rt60_bands_channels, rt60bands.Rt60BandsAnalysisSettings(band_mode="third"),
+                        lambda r: rt60bands.summarise_rt60_bands_results_text(r, False, False), "rt60bands", (1, 0)),
+    "spectrogram": (spectrogram.analyse_spectrogram_channels, spectrogram.SpectrogramAnalysisSettings(),
+                    spectrogram.summarise_spectrogram_results_text, "spectrogram", (0, 1)),
+    "spectrogram_n_fft_3000": (spectrogram.analyse_spectrogram_channels,
+                               spectrogram.SpectrogramAnalysisSettings(n_fft=3000),
+                               spectrogram.summarise_spectrogram_results_text, "spectrogram", (0, 0)),
+    "modalcloud": (modalcloud.analyse_modal_cloud_channels, modalcloud.ModalCloudAnalysisSettings(),
+                   modalcloud.summarise_modal_cloud_results_text, "modalcloud", (0, 1)),
+}
+
+
+def _golden_dsp(device) -> FileDsp:
+    ir = golden_utils.make_golden_ir()
+    return FileDsp([("left", ir[:, 0]), ("right", ir[:, 1])], 48_000, device)
+
+
+@pytest.mark.parametrize("case", sorted(PER_FILE))
+def test_per_file_analysis_on_card_matches_cpu(dev, case):
+    """The golden IR through one analysis on the card (K1 / K2 launched as
+    many times as listed, K2 not at all at n_fft 3000) and on the CPU."""
+    analyse, settings, summarise, tolerance, launches = PER_FILE[case]
+    before = (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches)
+    got = summarise(analyse(_golden_dsp(dev), settings))
+    assert (edc.EDC_KERNEL.launches - before[0], stft.STFT_KERNEL.launches - before[1]) == launches
+    ref = summarise(analyse(_golden_dsp("cpu"), settings))
+    assert_summaries_agree(ref, got, *TOLERANCES[tolerance], case)
+
+
+@pytest.mark.parametrize("n_fft", [3000, 32768])
+def test_stft_sizes_outside_the_kernel_take_the_plain_route_on_card(dev, n_fft):
+    x = torch.randn(2, 1 << 17, generator=torch.Generator().manual_seed(n_fft))
+    lengths = torch.tensor([1 << 17, 100_000], dtype=torch.int32)
+    before = stft.STFT_KERNEL.launches
+    got = stft.stft_mag_db(x.to(dev), lengths.to(dev), n_fft, 512)
+    assert stft.STFT_KERNEL.launches == before
+    ref = stft.stft_mag_db(x, lengths, n_fft, 512)
+    a, b = got.mag_db.cpu(), ref.mag_db
+    assert a.shape == b.shape and torch.equal(got.num_frames.cpu(), ref.num_frames)
+    loud = b > b.max() - 80.0
+    assert (a - b).abs()[loud].max().item() <= 0.01

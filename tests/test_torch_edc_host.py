@@ -90,7 +90,7 @@ def lib(lib_path):
     return _load(lib_path)
 
 
-def _host_edc(lib, x, lengths, reverse=False):
+def _host_edc(lib, x, lengths, reverse=False, floor_db=-120.0):
     """The kernel through its C entry, on host memory, with the scratch
     ops/edc.py allocates (NaN-filled, so an unwritten read shows)."""
     rows, n = x.shape
@@ -101,7 +101,7 @@ def _host_edc(lib, x, lengths, reverse=False):
     try:
         code = lib.aa_edc_db(
             x.data_ptr(), lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            rows, n, 1e-20, -120.0, None,
+            rows, n, 1e-20, floor_db, None,
         )
     finally:
         lib.host_set_reverse_blocks(0)
@@ -117,8 +117,8 @@ def _decays(rows, n, seed, tau=None):
     return (rng.standard_normal((rows, n)) * np.exp(-t / taus)).astype(np.float32)
 
 
-def _assert_matches_plain(got, x, lengths):
-    ref = edc.schroeder_edc_db_plain(x, lengths)
+def _assert_matches_plain(got, x, lengths, floor_db=-120.0):
+    ref = edc.schroeder_edc_db_plain(x, lengths, edc_floor_db=floor_db)
     assert got.shape == ref.shape
     n = x.shape[-1]
     past = torch.arange(n)[None, :] >= lengths[:, None].long()
@@ -181,6 +181,19 @@ def test_all_zero_row_takes_the_eps_path(lib):
     got = _host_edc(lib, x, length)
     _assert_matches_plain(got, x, length)
     assert bool((got[1] == 0).all())  # eps / eps everywhere: 0 dB
+
+
+def test_a_floor_of_minus_infinity_passes_the_unfloored_curve(lib):
+    """A smoothed EDC (ops/edc.py, smoothing_window_samples > 1) calls the
+    kernel with a floor of -inf and floors after the box filter: the
+    kernel's fmaxf(curve, floor) then passes the eps-clamped curve through,
+    finite, below -120 dB."""
+    n = 1 << 15
+    x = torch.from_numpy(_decays(2, n, 17, tau=n / 20.0))
+    length = torch.tensor([n, n - 3000], dtype=torch.int32)
+    got = _host_edc(lib, x, length, floor_db=-np.inf)
+    _assert_matches_plain(got, x, length, floor_db=-np.inf)
+    assert got[0].min().item() < -150.0
 
 
 def test_blocks_in_reverse_order_give_the_same_curve(lib):

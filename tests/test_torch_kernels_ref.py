@@ -148,9 +148,24 @@ def test_stft_plain_k_out_floor_and_frame_mask_match_jax():
 
 @pytest.mark.parametrize("n_fft", [3000, 128, 32768])
 def test_stft_sizes_not_yet_ported_raise(n_fft):
-    x = torch.zeros((1, 1 << 16))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        stft.stft_magnitude(x, torch.tensor([1 << 16], dtype=torch.int32), n_fft, 512)
+    """Sizes K2 has no instance for (not a power of two, or outside
+    256..16384) go through the plain route and match the JAX package's
+    jnp.fft path; K2's own entry refuses them."""
+    assert not stft.kernel_takes(n_fft)
+    rng = np.random.default_rng(n_fft)
+    n = 1 << 16
+    x = rng.standard_normal((1, n)).astype(np.float32)
+    lengths = np.array([n - 777], np.int32)
+    res = stft.stft_magnitude(torch.from_numpy(x), torch.from_numpy(lengths), n_fft, 512, True, 1e-6)
+    with _cpu():
+        ref = jstft.stft_magnitude(jnp.asarray(x), jnp.asarray(lengths), n_fft, 512, True, 1e-6, "xla")
+    ref_mag = np.asarray(ref.mag)
+    assert res.mag.shape == ref_mag.shape
+    assert np.max(np.abs(res.mag.numpy() - ref_mag)) / np.max(ref_mag) < STFT_REL_TOL
+    np.testing.assert_array_equal(res.num_frames.numpy(), np.asarray(ref.num_frames))
+    with pytest.raises(ValueError, match="powers of two"):
+        stft._check_n_fft(n_fft)
+    assert stft.STFT_KERNEL.launches == 0
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -1,0 +1,132 @@
+"""The port's per-file subcommands (decay, rt60bands, fr, groupdelay,
+spectrogram, diffusion, waterfall, modalcloud, deconvolve) through its CLI
+entry on the CPU, against the JAX CLI on the same files.
+
+- stdout: the JAX CLI's lines ("Wrote JSON: <path>", then the summary)
+  with the same structure and every number within the module's tolerance
+  of tests/test_reference_parity.py (TOLERANCES); `deconvolve` prints the
+  JAX CLI's lines exactly, and writes a WAV with the JAX one's header.
+- --json: the same keys and leaf types as the JAX CLI's file.
+- Refused before any side effect, with "not yet ported" and the flag's
+  name: --output, a run without --no_show / --no-show (the figures), and
+  --exact-grid. Without CUDA, every per-file command exits unless
+  --device cpu is given.
+"""
+
+import json
+from unittest import mock
+
+import pytest
+
+pytest.importorskip("jax")
+
+import torch  # noqa: E402
+
+import golden_utils  # noqa: E402
+import parity_matrix  # noqa: E402
+from _summary_parity import assert_summaries_agree, json_skeleton  # noqa: E402
+from audio_analysis_tpu.cli import analyse_cli as jax_cli  # noqa: E402
+from audio_analysis_tpu_torch.cli import analyse_cli as torch_cli  # noqa: E402
+from test_reference_parity import TOLERANCES  # noqa: E402
+from test_torch_analyses import _write  # noqa: E402
+
+torch.set_num_threads(2)
+
+# (id, argv after the input, module of the tolerance)
+CASES = [
+    ("decay", ["decay", "--no_show"], "decay"),
+    ("decay_smoothing_480", ["decay", "--no_show", "--smoothing", "480"], "decay"),
+    ("rt60bands", ["rt60bands", "--no_show"], "rt60bands"),
+    ("rt60bands_octave", ["rt60bands", "--no_show", "--band_mode", "octave", "--include_t20"], "rt60bands"),
+    ("rt60bands_third", ["rt60bands", "--no_show", "--band_mode", "third"], "rt60bands"),
+    ("fr", ["fr", "--no_show"], "frequency_response"),
+    ("fr_smoothed", ["fr", "--no_show", "--smoothing_log_bins", "9"], "frequency_response"),
+    ("groupdelay", ["groupdelay", "--no-show"], "group_delay"),
+    ("spectrogram", ["spectrogram", "--no_show"], "spectrogram"),
+    ("spectrogram_n_fft_3000", ["spectrogram", "--no_show", "--n_fft", "3000"], "spectrogram"),
+    ("diffusion", ["diffusion", "--no_show"], "diffusion"),
+    ("waterfall", ["waterfall", "--no_show"], "waterfall"),
+    ("modalcloud", ["modalcloud", "--no_show"], "modalcloud"),
+    ("modalcloud_n_fft_32768", ["modalcloud", "--no_show", "--n_fft", "32768"], "modalcloud"),
+]
+
+
+@pytest.fixture(scope="module")
+def golden_wav(tmp_path_factory):
+    return _write(tmp_path_factory.mktemp("per_file_cli") / "golden.wav", golden_utils.make_golden_ir())
+
+
+def _stdout(capsys, main, argv) -> str:
+    capsys.readouterr()
+    main(argv)
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,module", [c[1:] for c in CASES], ids=[c[0] for c in CASES])
+def test_per_file_stdout_and_json_match_jax_cli(golden_wav, tmp_path, capsys, argv, module):
+    ours_json, theirs_json = tmp_path / "ours.json", tmp_path / "theirs.json"
+    cmd = [argv[0], "--input", golden_wav, *argv[1:]]
+    ours = _stdout(capsys, torch_cli.main, cmd + ["--json", str(ours_json), "--device", "cpu"])
+    theirs = _stdout(capsys, jax_cli.main, cmd + ["--json", str(theirs_json)])
+    assert ours.splitlines()[0] == f"Wrote JSON: {ours_json}"
+    assert theirs.splitlines()[0] == f"Wrote JSON: {theirs_json}"
+    rel, abs_ = TOLERANCES[module]
+    assert_summaries_agree(theirs.split("\n", 1)[1], ours.split("\n", 1)[1], rel, abs_, argv[0])
+    assert ours.endswith("\n") and ours.count("\n") == theirs.count("\n")
+    assert json_skeleton(json.loads(ours_json.read_text())) == json_skeleton(json.loads(theirs_json.read_text()))
+
+
+def test_deconvolve_cli_matches_jax_cli(tmp_path, capsys):
+    sweep = _write(tmp_path / "sweep.wav", parity_matrix.make_sweep())
+    recorded = _write(tmp_path / "rec.wav", parity_matrix.make_recorded(golden_utils.make_golden_ir()))
+    base = ["deconvolve", "--recorded_wav_file_path", recorded, "--sweep_wav_file_path", sweep,
+            "--no-normalise_peak", "--output_length_mode", "full_fft"]
+    ours_wav, theirs_wav = tmp_path / "ours_ir.wav", tmp_path / "theirs_ir.wav"
+    ours = _stdout(capsys, torch_cli.main, base + ["--output_ir_wav_file_path", str(ours_wav), "--device", "cpu"])
+    theirs = _stdout(capsys, jax_cli.main, base + ["--output_ir_wav_file_path", str(theirs_wav)])
+    assert ours.replace(str(ours_wav), "IR") == theirs.replace(str(theirs_wav), "IR")
+    assert ours.splitlines()[1:] == ["  sample_rate_hz=48000", "  channels=2", "  length_seconds=2.731"]
+    a, b = ours_wav.read_bytes(), theirs_wav.read_bytes()
+    assert len(a) == len(b) and a[: a.index(b"data") + 8] == b[: b.index(b"data") + 8]
+    # without an output path: <recorded stem>_ir.wav beside the recording
+    out = _stdout(capsys, torch_cli.main, base[:5] + ["--device", "cpu"])
+    assert out.splitlines()[0] == f"Wrote IR WAV: {tmp_path / 'rec_ir.wav'}"
+    assert (tmp_path / "rec_ir.wav").is_file()
+
+
+@pytest.mark.parametrize(
+    "argv,flag",
+    [
+        (["decay", "--no_show", "--output", "plots/x"], "--output"),
+        (["spectrogram", "--no_show", "--output", "plots/x"], "--output"),
+        (["decay"], "--no_show"),
+        (["waterfall"], "--no_show"),
+        (["groupdelay"], "--no-show"),
+        (["fr", "--no_show", "--exact-grid"], "--exact-grid"),
+        (["groupdelay", "--no-show", "--exact-grid"], "--exact-grid"),
+    ],
+    ids=["decay-output", "spectrogram-output", "decay-show", "waterfall-show", "groupdelay-show",
+         "fr-exact-grid", "groupdelay-exact-grid"],
+)
+def test_per_file_figures_and_exact_grid_are_refused(golden_wav, tmp_path, argv, flag):
+    out = tmp_path / "out.json"
+    with pytest.raises(SystemExit) as exc:
+        torch_cli.main([argv[0], "--input", golden_wav, *argv[1:], "--json", str(out), "--device", "cpu"])
+    message = str(exc.value.code)
+    assert "not yet ported" in message and flag in message
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("command", ["decay", "modalcloud", "deconvolve"])
+def test_without_cuda_the_per_file_commands_exit_unless_cpu(golden_wav, tmp_path, command):
+    argv = {
+        "decay": ["decay", "--input", golden_wav, "--no_show"],
+        "modalcloud": ["modalcloud", "--input", golden_wav, "--no_show"],
+        "deconvolve": ["deconvolve", "--recorded_wav_file_path", golden_wav, "--sweep_wav_file_path", golden_wav,
+                       "--output_ir_wav_file_path", str(tmp_path / "ir.wav")],
+    }[command]
+    with mock.patch.object(torch.cuda, "is_available", return_value=False):
+        with pytest.raises(SystemExit) as exc:
+            torch_cli.main(argv)
+    assert "CUDA is not available" in str(exc.value.code)
+    assert not (tmp_path / "ir.wav").exists()

@@ -104,6 +104,20 @@ def test_corrupt_state_file_starts_fresh(tmp_path):
     assert json.loads((tmp_path / ".aa_watch_state.json").read_text())["analyzed"]
 
 
+def test_state_keys_of_the_jax_watcher_survive_a_cycle(tmp_path):
+    """The JAX watcher's figure-skip cache (plot_sigs, plot_sigs_settings)
+    in a shared state file is written back unchanged."""
+    write_bundle(tmp_path / "run1", _taps(1), SR)
+    plot_sigs = {str(tmp_path / "old"): {"tap0": "sig"}}
+    (tmp_path / ".aa_watch_state.json").write_text(json.dumps(
+        {"analyzed": {}, "last_metrics": None, "plot_sigs": plot_sigs, "plot_sigs_settings": "abc"}
+    ))
+    assert len(_watch(tmp_path, max_bundles=1)) == 1
+    state = json.loads((tmp_path / ".aa_watch_state.json").read_text())
+    assert state["plot_sigs"] == plot_sigs and state["plot_sigs_settings"] == "abc"
+    assert list(state["analyzed"]) == [str(tmp_path / "run1")]
+
+
 def test_failing_bundle_is_retried_then_given_up(tmp_path):
     write_bundle(tmp_path / "broken", _taps(1), SR)
     (tmp_path / "broken" / "taps" / "tap0.wav").write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
