@@ -12,7 +12,10 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
             bundle host entry (analyze_bundle_pipelined)
   report/   the engine bundle report (per-tap markdown + bundle_metrics.json),
             the run-to-run comparison and the bundle watcher
-  cli/      `python -m audio_analysis_tpu_torch.cli {bundle,batch,watch,compare}`
+  analyses/ the per-file analyses (analysis and summary halves)
+  signals/  the test-tone generators (numpy; Karplus-Strong on the device)
+  cli/      `python -m audio_analysis_tpu_torch.cli <command>` (the analyse
+            CLI) and `python -m audio_analysis_tpu_torch.cli.gen_cli`
   io/       WAV and capture-bundle I/O (numpy, scipy, and a ctypes binding of
             the repo's C++ decoder cpp/audioio.cpp)
   csrc/     CUDA sources, built with nvcc at first use (_build.py)

@@ -10,9 +10,13 @@ cuda) where the JAX package used its default backend.
   decay, rt60bands          EDC through kernel K1 (ops.edc)
   spectrogram, waterfall,   dB STFT through kernel K2 (ops.stft)
   modalcloud
-  frequency_response,       torch.fft (ops.spectral, ops.diffusion)
-  group_delay, diffusion,
-  deconvolve
+  frequency_response,       torch.fft (ops.spectral, ops.diffusion);
+  group_delay, filterplot,  fr, group_delay and filterplot also have the
+  diffusion, deconvolve     host float64 `exact_grid` version
+  zplane                    float32 AR Gram products (ops.spectral), host
+                            float64 solve and roots
+  impulse_response,         host numpy only
+  filter_response_study
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ import dataclasses
 from audio_analysis_tpu_torch.analyses.decay import DecayAnalysisSettings
 from audio_analysis_tpu_torch.analyses.deconvolve import DeconvolveSettings
 from audio_analysis_tpu_torch.analyses.diffusion import DiffusionAnalysisSettings
+from audio_analysis_tpu_torch.analyses.filterplot import FilterAnalysisSettings
 from audio_analysis_tpu_torch.analyses.frequency_response import FrequencyResponseAnalysisSettings
 from audio_analysis_tpu_torch.analyses.group_delay import GroupDelayAnalysisSettings
+from audio_analysis_tpu_torch.analyses.impulse_response import ImpulseResponseViewSettings
 from audio_analysis_tpu_torch.analyses.modalcloud import ModalCloudAnalysisSettings
 from audio_analysis_tpu_torch.analyses.rt60bands import Rt60BandsAnalysisSettings
 from audio_analysis_tpu_torch.analyses.spectrogram import SpectrogramAnalysisSettings
 from audio_analysis_tpu_torch.analyses.waterfall import WaterfallAnalysisSettings
+from audio_analysis_tpu_torch.analyses.zplane import ZPlaneAnalysisSettings
 
 _SETTINGS = {
     cls.__name__: cls
@@ -35,12 +42,15 @@ _SETTINGS = {
         DecayAnalysisSettings,
         DeconvolveSettings,
         DiffusionAnalysisSettings,
+        FilterAnalysisSettings,
         FrequencyResponseAnalysisSettings,
         GroupDelayAnalysisSettings,
+        ImpulseResponseViewSettings,
         ModalCloudAnalysisSettings,
         Rt60BandsAnalysisSettings,
         SpectrogramAnalysisSettings,
         WaterfallAnalysisSettings,
+        ZPlaneAnalysisSettings,
     )
 }
 

@@ -1,15 +1,17 @@
 """
 Frequency response / magnitude spectrum (audio_analysis_tpu/analyses/
-frequency_response.py, analysis and summary; the figure and the
-`exact_grid` host float64 fallback are not ported yet): Hann window over
-the analysed segment, dB floor, optional log-frequency smoothing, the peak
-and the amplitude-weighted centroid over [f_min, f_max].
+frequency_response.py, analysis and summary; the figure is not ported
+yet): Hann window over the analysed segment, dB floor, optional
+log-frequency smoothing, the peak and the amplitude-weighted centroid over
+[f_min, f_max].
 
 One rfft (torch.fft) per channel at the padded bucket length, so the bin
 grid is finer than the reference's exact-length FFT, as in the JAX
 package. The (C, F) dB plane reaches the host in the 1/128-dB fixed point;
 without smoothing the peak and centroid come from the full float32
 spectrum on the device, with smoothing from the smoothed host plane.
+`exact_grid` runs the host float64 numpy version on the reference's exact
+segment-length FFT grid instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from audio_analysis_tpu_torch.analyses._common import (
     FileDsp,
     fetch_db_plane_i16,
     fetch_packed,
+    host_aligned_segments,
     single_channel_dsp,
 )
 from audio_analysis_tpu_torch.ops import logfreq, spectral
@@ -42,8 +45,7 @@ class FrequencyResponseAnalysisSettings:
     f_max_hz: float = 20000.0
     smoothing_log_bins: int = 0
     log_bins_per_octave: int = 96
-    # host float64 fallback at the reference's exact segment-length FFT
-    # grid: not ported yet, refused
+    # host float64 numpy on the reference's exact segment-length FFT grid
     exact_grid: bool = False
 
 
@@ -64,8 +66,6 @@ def analyse_frequency_response_channels(
     settings: FrequencyResponseAnalysisSettings,
 ) -> List[ChannelFrequencyResponse]:
     """All channels in one batched spectrum."""
-    if settings.exact_grid:
-        raise NotImplementedError("exact_grid (the host float64 fallback) is not yet ported")
     sample_rate_hz = dsp.sample_rate_hz
     aligned = dsp.aligned(
         settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds
@@ -79,6 +79,9 @@ def analyse_frequency_response_channels(
     nyquist = 0.5 * sample_rate_hz
     f_min = float(np.clip(settings.f_min_hz, 0.0, nyquist))
     f_max = float(np.clip(settings.f_max_hz, f_min, nyquist))
+    if settings.exact_grid:
+        return _analyse_exact_grid(dsp, settings, f_min, f_max)
+
     spec = spectral.segment_spectrum(
         aligned.samples,
         aligned.length,
@@ -122,6 +125,75 @@ def analyse_frequency_response_channels(
         else:
             peak_freq = float(peak_all[i])
             centroid = float(centroid_all[i])
+        results.append(
+            ChannelFrequencyResponse(
+                channel_name=channel_name,
+                sample_rate_hz=int(sample_rate_hz),
+                analysis_start_sample_index=int(starts[i]),
+                analysis_length_samples=int(seg_lens[i]),
+                frequency_hz=freq_hz,
+                magnitude_db=mag_db.astype(np.float32),
+                peak_frequency_hz=peak_freq,
+                spectral_centroid_hz=centroid,
+            )
+        )
+    return results
+
+
+def _analyse_exact_grid(
+    dsp: FileDsp,
+    settings: FrequencyResponseAnalysisSettings,
+    f_min: float,
+    f_max: float,
+) -> List[ChannelFrequencyResponse]:
+    """
+    Host float64 numpy on the reference's exact segment-length FFT grid:
+    rfft of the Hann-windowed exact segment, dB floor, peak and centroid
+    over the selected range. Log-frequency smoothing runs ops.logfreq on
+    the host on that grid.
+    """
+    sample_rate_hz = dsp.sample_rate_hz
+    segments, starts, seg_lens = host_aligned_segments(
+        dsp, settings.trim_to_peak, settings.ignore_leading_seconds,
+        settings.analysis_duration_seconds,
+    )
+    floor_lin = 10.0 ** (float(settings.magnitude_floor_db) / 20.0)
+    smoothed = settings.smoothing_log_bins and int(settings.smoothing_log_bins) > 1
+
+    results = []
+    for i, (channel_name, x) in enumerate(zip(dsp.channel_names, segments)):
+        n = int(x.size)
+        xw = x * np.hanning(n) if settings.use_hann_window else x
+        mag = np.maximum(np.abs(np.fft.rfft(xw)), floor_lin)
+        mag_db = (20.0 * np.log10(mag)).astype(np.float32)
+        freq_hz = np.fft.rfftfreq(n, d=1.0 / float(sample_rate_hz)).astype(np.float32)
+
+        if smoothed:
+            nyq = 0.5 * float(sample_rate_hz)
+            f_min_s = float(np.clip(settings.f_min_hz, 1.0, nyq))
+            f_max_s = float(np.clip(settings.f_max_hz, f_min_s, nyq))
+            mag_db = logfreq.smooth_mag_db_log_frequency(
+                freq_hz,
+                torch.from_numpy(mag_db[None, :]),
+                f_min_s,
+                f_max_s,
+                int(settings.smoothing_log_bins),
+                int(settings.log_bins_per_octave),
+            ).numpy()[0]
+
+        sel = (freq_hz >= f_min) & (freq_hz <= f_max)
+        if not np.any(sel):
+            raise ValueError("Selected frequency range is empty (check f_min_hz/f_max_hz).")
+        mag_sel_db = mag_db[sel]
+        mag_sel_lin = 10.0 ** (mag_sel_db.astype(np.float64) / 20.0)
+        peak_freq = float(freq_hz[sel][int(np.argmax(mag_sel_db))])
+        wsum = float(mag_sel_lin.sum())
+        centroid = (
+            float((freq_hz[sel].astype(np.float64) * mag_sel_lin).sum() / wsum)
+            if wsum > 0.0
+            else float(freq_hz[sel][0])
+        )
+
         results.append(
             ChannelFrequencyResponse(
                 channel_name=channel_name,

@@ -1,13 +1,14 @@
 """
 Group delay vs frequency (audio_analysis_tpu/analyses/group_delay.py,
-analysis and summary; the figure and the `exact_grid` host float64
-fallback are not ported yet): gd(w) = -dphi/dw in samples from the
+analysis and summary; the figure is not ported yet): gd(w) = -dphi/dw in samples from the
 unwrapped rfft phase, optional bin smoothing, and the median / p10 / p90
 summary.
 
 The FFT (torch.fft) runs at the padded bucket length capped at 2^20, or
 at `fft_size` (the aligned segment cut or zero-padded to it on the
-device).
+device). `exact_grid` runs the host float64 numpy version at the
+reference's FFT size (next power of two of the segment, capped at 2^20)
+instead, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from audio_analysis_tpu_torch.analyses._common import FileDsp, single_channel_dsp
+from audio_analysis_tpu_torch.analyses._common import FileDsp, host_aligned_segments, single_channel_dsp
 from audio_analysis_tpu_torch.ops import spectral
 
 _MAX_FFT = 1 << 20
@@ -37,8 +38,7 @@ class GroupDelayAnalysisSettings:
     f_max_hz: float = 20000.0
     unwrap_phase: bool = True
     smoothing_bins: int = 0
-    # host float64 fallback at the reference's exact FFT size: not ported
-    # yet, refused
+    # host float64 numpy at the reference's exact FFT size
     exact_grid: bool = False
 
 
@@ -55,9 +55,9 @@ def analyse_group_delay_channels(
     settings: GroupDelayAnalysisSettings,
 ) -> List[ChannelGroupDelayResult]:
     """All channels in one batched phase / gradient pass."""
-    if settings.exact_grid:
-        raise NotImplementedError("exact_grid (the host float64 fallback) is not yet ported")
     sample_rate_hz = dsp.sample_rate_hz
+    if settings.exact_grid:
+        return _analyse_exact_grid(dsp, settings)
     aligned = dsp.aligned(
         settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds
     )
@@ -91,6 +91,54 @@ def analyse_group_delay_channels(
         )
         for i, channel_name in enumerate(dsp.channel_names)
     ]
+
+
+def _analyse_exact_grid(
+    dsp: FileDsp,
+    settings: GroupDelayAnalysisSettings,
+) -> List[ChannelGroupDelayResult]:
+    """
+    Host float64 numpy as the reference computes it: Hann over the exact
+    segment, rfft at the next power of two of the segment length (capped
+    at 2^20), unwrap, gd = -dphi/dw in samples, optional moving-average
+    smoothing, then the frequency-range mask.
+    """
+    sample_rate_hz = dsp.sample_rate_hz
+    segments, _, _ = host_aligned_segments(
+        dsp, settings.trim_to_peak, settings.ignore_leading_seconds,
+        settings.analysis_duration_seconds,
+    )
+
+    results = []
+    for channel_name, x in zip(dsp.channel_names, segments):
+        seg = x * np.hanning(x.size) if settings.use_hann_window else x
+        if settings.fft_size is None:
+            n_fft = 1 << max(0, int(np.ceil(np.log2(max(1, seg.size)))))
+            n_fft = min(n_fft, _MAX_FFT)
+        else:
+            n_fft = int(settings.fft_size)
+
+        spectrum = np.fft.rfft(seg, n=n_fft)
+        freq_hz = np.fft.rfftfreq(n_fft, d=1.0 / float(sample_rate_hz))
+        phase = np.angle(spectrum)
+        if settings.unwrap_phase:
+            phase = np.unwrap(phase)
+        w = 2.0 * np.pi * (freq_hz / float(sample_rate_hz))  # rad/sample
+        gd = -np.gradient(phase, w)
+        if settings.smoothing_bins and int(settings.smoothing_bins) > 1:
+            kernel = np.ones(int(settings.smoothing_bins)) / float(settings.smoothing_bins)
+            gd = np.convolve(gd, kernel, mode="same")
+
+        sel = (freq_hz >= float(settings.f_min_hz)) & (freq_hz <= float(settings.f_max_hz))
+        results.append(
+            ChannelGroupDelayResult(
+                channel_name=channel_name,
+                sample_rate_hz=int(sample_rate_hz),
+                frequency_hz=freq_hz[sel].astype(np.float64),
+                group_delay_samples=gd[sel].astype(np.float64),
+            )
+        )
+    return results
 
 
 def analyse_group_delay_for_channel(

@@ -1,0 +1,150 @@
+"""
+Z-plane poles (and optional FIR zeros) from an AR (all-pole) fit of an IR
+segment (audio_analysis_tpu/analyses/zplane.py, analysis and summary; the
+figure is not ported yet): covariance-method least squares with an
+optional ridge, poles from the companion polynomial, approximate zeros
+from the AR-filtered segment, and the RT60-from-pole-radius annotation.
+
+The Gram accumulation over up to ~10^6 rows runs on the device as batched
+float32 products (ops.spectral.ar_normal_equations), every channel at
+once; the (p, p) float64 solve and the root finding run on the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from audio_analysis_tpu_torch.analyses._common import FileDsp, fetch_packed, single_channel_dsp
+from audio_analysis_tpu_torch.ops import spectral
+from audio_analysis_tpu_torch.ops.common import bool_valid_mask
+
+
+@dataclass(frozen=True)
+class ZPlaneAnalysisSettings:
+    use_mono_downmix_for_stereo: bool = False
+    trim_to_peak: bool = True
+    ignore_leading_seconds: float = 0.0
+    analysis_duration_seconds: Optional[float] = None
+    model: str = "ar"
+    ar_order: int = 256
+    derive_zeros: bool = False
+    zero_order: int = 64
+    normalise_segment: bool = True
+    ridge_lambda: float = 0.0
+
+
+@dataclass(frozen=True)
+class ChannelZPlaneResult:
+    channel_name: str
+    sample_rate_hz: int
+    poles: np.ndarray  # complex
+    zeros: Optional[np.ndarray]  # complex or None
+
+
+def rt60_from_pole_radius(radius: float, sample_rate_hz: int) -> float:
+    """RT60 ~= ln(1000) * tau with tau_samples = -1/ln(r)."""
+    radius = float(radius)
+    if radius <= 0.0 or radius >= 1.0:
+        return float("inf")
+    tau_seconds = (-1.0 / np.log(radius)) / float(sample_rate_hz)
+    return float(np.log(1000.0) * tau_seconds)
+
+
+def analyse_zplane_channels(
+    dsp: FileDsp,
+    settings: ZPlaneAnalysisSettings,
+) -> List[ChannelZPlaneResult]:
+    """All channels' Gram accumulations in one batched device pass; the
+    solves and the roots on the host, per channel."""
+    trim_key = (settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds)
+    aligned = dsp.aligned(*trim_key)
+    _, seg_lens = dsp.aligned_host_meta(*trim_key)
+
+    order = int(settings.ar_order)
+    min_seg = int(seg_lens.min())
+    if min_seg <= order:
+        order = max(1, min_seg - 1)
+
+    # per-channel peak normalisation: a float32 division of float32 values
+    # is correctly rounded, so this equals the float64 division cast back
+    seg = aligned.samples
+    if settings.normalise_segment:
+        peak = torch.where(bool_valid_mask(seg.shape[-1], aligned.length), seg.abs(), 0.0).amax(dim=-1)
+        seg = torch.where(peak[:, None] > 0.0, seg / torch.where(peak > 0.0, peak, 1.0)[:, None], seg)
+
+    normal = spectral.ar_normal_equations(seg, aligned.length, order)
+    grams, moments = fetch_packed(normal.gram, normal.moment)
+
+    segs64: List[np.ndarray] = []
+    if settings.derive_zeros:
+        # the zeros use the float64 normalised segment, as the JAX package does
+        host = aligned.samples.cpu().numpy()
+        for i in range(dsp.num_channels):
+            s = host[i][: int(seg_lens[i])].astype(np.float64)
+            if settings.normalise_segment and s.size:
+                peak64 = float(np.max(np.abs(s)))
+                if peak64 > 0.0:
+                    s = s / peak64
+            segs64.append(s)
+
+    results = []
+    for i, channel_name in enumerate(dsp.channel_names):
+        a = spectral.solve_ar_coefficients(grams[i], moments[i], float(settings.ridge_lambda))
+        zeros: Optional[np.ndarray] = None
+        if settings.derive_zeros:
+            b = spectral.derive_fir_numerator_from_ar(a, segs64[i], int(settings.zero_order))
+            zeros = spectral.ar_poles(b)
+        results.append(
+            ChannelZPlaneResult(
+                channel_name=channel_name,
+                sample_rate_hz=int(dsp.sample_rate_hz),
+                poles=spectral.ar_poles(a),
+                zeros=zeros,
+            )
+        )
+    return results
+
+
+def analyse_zplane_for_channel(
+    samples: np.ndarray,
+    sample_rate_hz: int,
+    channel_name: str,
+    settings: ZPlaneAnalysisSettings,
+    device: "str | torch.device" = "cuda",
+) -> ChannelZPlaneResult:
+    return analyse_zplane_channels(single_channel_dsp(samples, sample_rate_hz, channel_name, device), settings)[0]
+
+
+def analyse_zplane_from_wav_file(
+    input_wav_file_path: str | Path,
+    settings: Optional[ZPlaneAnalysisSettings] = None,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelZPlaneResult]:
+    if settings is None:
+        settings = ZPlaneAnalysisSettings()
+    if dsp is None:
+        dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
+    return analyse_zplane_channels(dsp, settings)
+
+
+def summarise_zplane_results_text(results: List[ChannelZPlaneResult]) -> str:
+    lines: List[str] = []
+    for r in results:
+        if r.poles.size == 0:
+            lines.append(f"- {r.channel_name}: no poles (fit failed or order=0)")
+            continue
+        radii = np.abs(r.poles)
+        lines.append(
+            f"- {r.channel_name}: poles={r.poles.size}, "
+            f"max|p|={float(np.max(radii)):.6f}, median|p|={float(np.median(radii)):.6f}, "
+            f"unstable(|p|>=1)={int(np.sum(radii >= 1.0))}"
+        )
+    if not lines:
+        return "No z-plane results."
+    return "Z-plane summary:\n" + "\n".join(lines)

@@ -1,5 +1,5 @@
 """
-The port's analyse CLI: the engine-path and per-file subcommands of
+The port's analyse CLI: every subcommand of
 audio_analysis_tpu/cli/analyse_cli.py with the same flags, defaults,
 messages, stdout and exit codes.
 
@@ -8,16 +8,19 @@ messages, stdout and exit codes.
     python -m audio_analysis_tpu_torch.cli watch --input <recorder output dir>
     python -m audio_analysis_tpu_torch.cli compare <previous run> <current run>
     python -m audio_analysis_tpu_torch.cli decay --input ir.wav --no_show [--json out.json]
-        (likewise rt60bands, fr, spectrogram, diffusion, waterfall,
-        modalcloud; groupdelay spells it --no-show)
+        (likewise ir, rt60bands, fr, filter, spectrogram, diffusion,
+        waterfall, modalcloud; groupdelay and zplane spell it --no-show;
+        fr, filter and groupdelay take --exact-grid)
     python -m audio_analysis_tpu_torch.cli deconvolve --recorded_wav_file_path r.wav --sweep_wav_file_path s.wav
 
 `--device` picks the torch device (default cuda; `--device cpu` runs the
 plain torch versions of the kernels on the host). Without CUDA, a command
-that touches the device exits at once unless `--device cpu` is given.
+that takes --device exits at once unless `--device cpu` is given.
 Flags of the JAX CLI whose paths are not ported yet are refused with a
-"not yet ported" exit; so are the figures of the per-file commands
-(`--output`, or a run without `--no_show`) and `--exact-grid`.
+"not yet ported" exit: the plot reports (`report`, `bundle`/`batch`
+without --no-plots, `--resume`, `--tap-shard`, `watch --plots`),
+`--multi-host`, and the figures of the per-file commands (`--output`, or a
+run without `--no_show` / `--no-show`).
 """
 
 from __future__ import annotations
@@ -233,8 +236,33 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _add_per_file_parsers(sub) -> None:
-    """The per-file subcommands, with the JAX CLI's flags, dests, defaults
-    and choices, plus --device."""
+    """The per-file subcommands and `report`, with the JAX CLI's flags,
+    dests, defaults and choices, plus --device."""
+    # --- ir ---
+    p = sub.add_parser("ir", help="Waveform (full + early zoom) and log-magnitude tail view.")
+    _add_input(p)
+    p.add_argument("--early-window", dest="early_window_seconds", type=float, default=0.08)
+    p.add_argument("--floor-db", dest="log_magnitude_floor_db", type=float, default=-120.0)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    _add_output_noshow(p, "Save PNGs: <basename>.png, _early.png, _tail.png", underscore=True)
+    _add_device(p)
+
+    # --- zplane ---
+    p = sub.add_parser("zplane", help="Estimate poles (and optional zeros) from an IR.")
+    _add_input(p)
+    _add_output_noshow(p, "Output basename -> <basename>_zplane_<CH>.png", underscore=False)
+    p.add_argument("--mono", dest="use_mono_downmix_for_stereo", action="store_true")
+    p.add_argument("--no-trim", dest="trim_to_peak", action="store_false")
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--ar-order", dest="ar_order", type=int, default=256)
+    p.add_argument("--zeros", dest="derive_zeros", action="store_true")
+    p.add_argument("--zero-order", dest="zero_order", type=int, default=64)
+    p.add_argument("--radius", dest="limit_radius", type=float, default=1.2,
+                   help="Plot radius (figures: not yet ported).")
+    p.add_argument("--ridge", dest="ridge_lambda", type=float, default=0.0)
+    _add_device(p)
+
     # --- groupdelay ---
     p = sub.add_parser("groupdelay", help="Group delay vs frequency from an IR/filter output.")
     _add_input(p)
@@ -248,7 +276,7 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--fmin", dest="f_min_hz", type=float, default=20.0)
     p.add_argument("--fmax", dest="f_max_hz", type=float, default=20000.0)
     p.add_argument("--exact-grid", dest="exact_grid", action="store_true",
-                   help="Host fallback on the reference's exact FFT grid (not yet ported).")
+                   help="Host float64 on the reference's exact next-pow2 FFT grid.")
     _add_device(p)
 
     # --- deconvolve ---
@@ -315,7 +343,25 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--log_bins_per_octave", type=int, default=96)
     p.add_argument("--no_hann_window", action="store_true")
     p.add_argument("--exact-grid", dest="exact_grid", action="store_true",
-                   help="Host fallback on the reference's exact FFT grid (not yet ported).")
+                   help="Host float64 on the reference's exact segment-length FFT grid.")
+    _add_device(p)
+
+    # --- filter ---
+    p = sub.add_parser("filter", help="Filter frequency response: magnitude (dB) and phase.")
+    _add_input(p)
+    _add_output_noshow(p, "If provided, saves a PNG: <basename>_filter.png", underscore=True)
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore-leading", dest="ignore_leading_seconds", type=float, default=0.0)
+    p.add_argument("--duration", dest="analysis_duration_seconds", type=float, default=None)
+    p.add_argument("--magnitude_floor_db", type=float, default=-120.0)
+    p.add_argument("--f_min_hz", type=float, default=20.0)
+    p.add_argument("--f_max_hz", type=float, default=20000.0)
+    p.add_argument("--phase_mode", type=str, choices=["degrees", "radians"], default="degrees")
+    p.add_argument("--no_unwrap_phase", action="store_true")
+    p.add_argument("--no_hann_window", action="store_true")
+    p.add_argument("--exact-grid", dest="exact_grid", action="store_true",
+                   help="Host float64 on the reference's exact segment-length FFT grid.")
     _add_device(p)
 
     # --- spectrogram ---
@@ -411,6 +457,26 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--ylim_seconds_max", type=float, default=None)
     _add_device(p)
 
+    # --- report (plots + summary: not yet ported) ---
+    p = sub.add_parser("report", help="Run a standard analysis suite; write plots + summary "
+                                      "(not yet ported).")
+    _add_input(p)
+    p.add_argument("--output", dest="output_basename", type=str, required=True,
+                   help="Output basename/prefix (folder + base name).")
+    p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
+    p.add_argument("--trim_to_peak", action=BoolOpt, default=True)
+    p.add_argument("--ignore_leading_seconds", type=float, default=0.0)
+    for flag, dest in (("ir", "run_ir"), ("decay", "run_decay"), ("rt60bands", "run_rt60bands"),
+                       ("fr", "run_fr"), ("gd", "run_gd"), ("spectrogram", "run_spectrogram"),
+                       ("waterfall", "run_waterfall"), ("diffusion", "run_diffusion"),
+                       ("modalcloud", "run_modalcloud"), ("echodensity", "run_echodensity")):
+        p.add_argument(f"--{flag}", dest=dest, action=BoolOpt, default=True)
+    p.add_argument("--timing", dest="include_timing", action="store_true",
+                   help="Append a per-block wall-clock table to the report.")
+    p.add_argument("--profile-dir", dest="profile_dir", type=str, default=None,
+                   help="Write a profiler trace of the device work to this directory.")
+    _add_device(p)
+
 
 def _check_args(cmd: str, args: argparse.Namespace) -> None:
     """The JAX CLI's argument validation of bundle and batch, with its
@@ -442,13 +508,18 @@ def _check_args(cmd: str, args: argparse.Namespace) -> None:
 
 
 # the per-file subcommands that draw a figure (deconvolve draws none)
-FIGURE_COMMANDS = ("decay", "rt60bands", "fr", "groupdelay", "spectrogram", "diffusion", "waterfall", "modalcloud")
+FIGURE_COMMANDS = (
+    "ir", "zplane", "decay", "rt60bands", "fr", "filter", "groupdelay", "spectrogram", "diffusion",
+    "waterfall", "modalcloud",
+)
 
 
 def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
     """The first flag (or path) of `cmd` that the port does not have yet.
     `--plot-processes` is accepted and ignored where the JAX CLI ignores
     it: on the engine paths, which draw nothing."""
+    if cmd == "report":
+        return "report (the plot report)"
     refused = (
         ("--multi-host", getattr(args, "multi_host", False)),
         ("--coordinator", getattr(args, "coordinator", None) is not None),
@@ -458,7 +529,6 @@ def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
         ("--resume", getattr(args, "resume", False)),
         ("--plots", getattr(args, "watch_plots", False)),
         ("--output", getattr(args, "output_basename", None) is not None),
-        ("--exact-grid", getattr(args, "exact_grid", False)),
     )
     for flag, given in refused:
         if given:
@@ -466,7 +536,7 @@ def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
     if cmd in ("bundle", "batch") and not args.no_plots:
         return f"{cmd} without --no-plots (the plot reports)"
     if cmd in FIGURE_COMMANDS and not args.no_show:
-        flag = "--no-show" if cmd == "groupdelay" else "--no_show"
+        flag = "--no-show" if cmd in ("groupdelay", "zplane") else "--no_show"
         return f"{cmd} without {flag} (the figures)"
     return None
 
@@ -579,6 +649,19 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
         print(f"  length_seconds={result.samples.shape[0] / float(result.sample_rate_hz):.3f}")
         return
 
+    if cmd == "ir":
+        # host only, as in the JAX package; prints nothing but the JSON line
+        results = an.impulse_response.analyse_ir_from_wav_file(
+            path,
+            an.impulse_response.ImpulseResponseViewSettings(
+                early_window_seconds=float(args.early_window_seconds),
+                log_magnitude_floor_db=float(args.log_magnitude_floor_db),
+                use_mono_downmix=bool(args.use_mono_downmix),
+            ),
+        )
+        _maybe_write_json(args, results)
+        return
+
     if cmd in ("decay", "rt60bands"):
         edt = bool(args.compute_edt) if cmd == "decay" else bool(args.include_edt)
         decay_settings = an.decay.DecayAnalysisSettings(
@@ -625,10 +708,46 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
                 f_max_hz=float(args.f_max_hz),
                 smoothing_log_bins=int(args.smoothing_log_bins),
                 log_bins_per_octave=int(args.log_bins_per_octave),
+                exact_grid=bool(args.exact_grid),
             ),
             device=device,
         )
         text = an.frequency_response.summarise_frequency_response_results_text(results)
+    elif cmd == "filter":
+        results = an.filterplot.analyse_filter_response_from_wav_file(
+            path,
+            an.filterplot.FilterAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                use_hann_window=not bool(args.no_hann_window),
+                magnitude_floor_db=float(args.magnitude_floor_db),
+                f_min_hz=float(args.f_min_hz),
+                f_max_hz=float(args.f_max_hz),
+                phase_mode=str(args.phase_mode),
+                unwrap_phase=not bool(args.no_unwrap_phase),
+                exact_grid=bool(args.exact_grid),
+            ),
+            device=device,
+        )
+        text = an.filterplot.summarise_filter_response_results_text(results)
+    elif cmd == "zplane":
+        results = an.zplane.analyse_zplane_from_wav_file(
+            path,
+            an.zplane.ZPlaneAnalysisSettings(
+                use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
+                trim_to_peak=bool(args.trim_to_peak),
+                ignore_leading_seconds=float(args.ignore_leading_seconds),
+                analysis_duration_seconds=args.analysis_duration_seconds,
+                ar_order=int(args.ar_order),
+                derive_zeros=bool(args.derive_zeros),
+                zero_order=int(args.zero_order),
+                ridge_lambda=float(args.ridge_lambda),
+            ),
+            device=device,
+        )
+        text = an.zplane.summarise_zplane_results_text(results)
     elif cmd == "groupdelay":
         results = an.group_delay.analyse_group_delay_from_wav_file(
             path,
@@ -641,6 +760,7 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
                 smoothing_bins=int(args.smoothing_bins),
                 f_min_hz=float(args.f_min_hz),
                 f_max_hz=float(args.f_max_hz),
+                exact_grid=bool(args.exact_grid),
             ),
             device=device,
         )

@@ -1,13 +1,14 @@
 """
-Single-segment spectra (audio_analysis_tpu/ops/spectral.py:54-180):
-magnitude spectrum with its peak and centroid, phase, group delay, and
-regularised sweep deconvolution, on torch.fft.
+Single-segment spectra and the AR fit (audio_analysis_tpu/ops/spectral.py):
+magnitude spectrum with its peak and centroid, phase, group delay and
+regularised sweep deconvolution on torch.fft; the covariance-method AR
+normal equations as batched float32 matrix products on the device, and
+their float64 solve, poles and FIR zeros on the host (numpy).
 
 Segments arrive aligned at index 0 of a padded buffer with a valid length
 alongside (see ops.trim); windows are built at the valid length and the
 FFT runs at the buffer length (zero-padded: a denser sampling of the same
-windowed DTFT, as the JAX package does). The AR half of that module (the
-z-plane) is not ported yet.
+windowed DTFT, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -136,3 +137,108 @@ def deconvolve_spectral(
     spec_y = torch.fft.rfft(recorded, n=n_fft, dim=-1)
     h = spec_y * torch.conj(spec_x) / (power + eps)
     return torch.fft.irfft(h, n=n_fft, dim=-1).to(torch.float32)
+
+
+class ArFitResult(NamedTuple):
+    gram: torch.Tensor  # (..., p, p) A^T A
+    moment: torch.Tensor  # (..., p)   A^T y
+
+
+# rows per float32 product: cuBLAS sums each product's rows one after
+# another in float32, and over 65,536 rows of a decaying IR the small late
+# products fall below half an ulp of the running sum (a 9e-5 relative
+# Gram error measured on an H100); 1,024-row blocks keep each sum short,
+# and their many products fill the card where 65,536-row ones did not
+_BLOCK_ROWS = 1024
+
+
+def ar_normal_equations(
+    x: torch.Tensor,
+    length: torch.Tensor,
+    order: int,
+    chunk: int = 65536,
+) -> ArFitResult:
+    """
+    The exact least-squares normal equations of the AR(p) model
+    x[n] + sum_k a[k] x[n-k] = e[n]: rows n = p..L-1, A[r, k-1] = x[n-k],
+    y = -x[n], rows at or past min(length, N) zero. Gram and moment are
+    accumulated in float32 over row chunks; each chunk is one batched
+    product over every channel and every block of _BLOCK_ROWS rows,
+    (C * blocks, p, rows) @ (C * blocks, rows, p), whose block sums are
+    then added. The lag window is an unfold view of the signal (columns in
+    reverse lag order, so the sums are flipped back at the end).
+    """
+    n = x.shape[-1]
+    p = int(order)
+    num_chunks = max(1, -(-max(0, n - p) // chunk))
+    blocks = chunk // _BLOCK_ROWS if chunk % _BLOCK_ROWS == 0 else 1
+    batch_shape = x.shape[:-1]
+    xf = x.reshape(-1, n).to(torch.float32)
+    c = xf.shape[0]
+    limit = torch.clamp(torch.broadcast_to(length.to(torch.int32), batch_shape).reshape(-1), max=n)
+    # zeros past the end: the last chunk's windows read them, masked
+    xp = torch.nn.functional.pad(xf, (0, max(0, p + num_chunks * chunk - n)))
+    gram = torch.zeros((c, p, p), dtype=torch.float32, device=x.device)
+    moment = torch.zeros((c, p, 1), dtype=torch.float32, device=x.device)
+    for k in range(num_chunks):
+        row0 = p + k * chunk
+        rows = row0 + torch.arange(chunk, device=x.device)
+        ok = (rows[None, :] < limit[:, None]).to(torch.float32)  # (C, chunk)
+        # window r holds x[row0 + r - p .. row0 + r - 1]: lags p..1
+        a = (xp[:, row0 - p : row0 + chunk - 1].unfold(-1, p, 1) * ok[:, :, None]).reshape(c * blocks, -1, p)
+        y = (-xp[:, row0 : row0 + chunk] * ok).reshape(c * blocks, -1, 1)
+        gram += torch.bmm(a.transpose(1, 2), a).view(c, blocks, p, p).sum(dim=1)
+        moment += torch.bmm(a.transpose(1, 2), y).view(c, blocks, p, 1).sum(dim=1)
+    gram = torch.flip(gram, dims=(1, 2))
+    moment = torch.flip(moment[..., 0], dims=(1,))
+    return ArFitResult(gram.reshape(batch_shape + (p, p)), moment.reshape(batch_shape + (p,)))
+
+
+def solve_ar_coefficients(
+    gram: np.ndarray,
+    moment: np.ndarray,
+    ridge_lambda: float = 0.0,
+    rcond: float = 1e-6,
+) -> np.ndarray:
+    """
+    Host float64 solve of the normal equations -> AR coefficients with
+    a[0] = 1. The Gram was accumulated in float32, so its entries carry
+    about 1e-7 relative noise: singular directions below `rcond` of the
+    largest are accumulation noise, and truncating them (lstsq with
+    rcond=1e-6, ridge on the diagonal first) keeps ill-conditioned fits
+    (order well above the true mode count) from turning that noise into
+    wild poles. Well-conditioned fits get the exact solve.
+    """
+    g = np.asarray(gram, dtype=np.float64)
+    m = np.asarray(moment, dtype=np.float64)
+    p = g.shape[-1]
+    if ridge_lambda and ridge_lambda > 0.0:
+        g = g + ridge_lambda * np.eye(p)
+    rest, *_ = np.linalg.lstsq(g, m, rcond=rcond)
+    return np.concatenate(([1.0], rest))
+
+
+def ar_poles(a: np.ndarray) -> np.ndarray:
+    """
+    Poles of A(z) = 1 + a1 z^-1 + ... + ap z^-p: the roots of
+    z^p + a1 z^(p-1) + ... + ap after stripping trailing near-zero
+    coefficients (host numpy, a complex nonsymmetric eigensolve).
+    """
+    poly = np.asarray(a, dtype=np.float64)
+    while poly.size > 1 and abs(poly[-1]) < 1e-14:
+        poly = poly[:-1]
+    if poly.size <= 1:
+        return np.array([], dtype=np.complex128)
+    return np.roots(poly)
+
+
+def derive_fir_numerator_from_ar(a: np.ndarray, h: np.ndarray, zero_order: int) -> np.ndarray:
+    """b[n] = sum_k a[k] h[n-k] for n = 0..Q: one host convolution."""
+    a = np.asarray(a, dtype=np.float64)
+    h = np.asarray(h, dtype=np.float64)
+    q = int(max(0, zero_order))
+    full = np.convolve(a, h)
+    b = np.zeros(q + 1)
+    take = min(q + 1, full.size)
+    b[:take] = full[:take]
+    return b

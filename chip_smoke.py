@@ -71,10 +71,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      ((2, 2^20) at (4096, 512) and (8192, 512), every bin) are checked and
      timed in phase 2 under the kernels line's `shapes` with
      "path": "per_file".
+  9. the rest of the per-file commands and the gen CLI through their CLI
+     entries on the card, none of which launches K1 or K2 (checked: 0 and
+     0 in every run): filter, filter / fr / groupdelay --exact-grid (host
+     float64), zplane at its default order 256 and with --zeros --ridge
+     1e-5, and ir --json, on the tap and on verb_ir.wav, each cold, warm
+     (under torch.profiler on the tap) and with --device cpu (zplane's CPU
+     runs on verb_ir.wav only); the card run against the CPU run
+     (summaries within the per-module tolerances, EXACT_TOLERANCES for the
+     exact grid, zplane's pole counts exact and radii within 8e-2, an
+     unstable-count flip logged; the same JSON keys). The AR Gram of the
+     tap's order-256 fit alone: CUDA-event time against its float32 bound,
+     peak memory, and its relative Frobenius error against a float64 Gram
+     on the card (<= 1e-5). `gen --channel_mode stereo all` and
+     `karplus_pluck --freq 110` / `--freq 4000` on the card against
+     `--device cpu` (WAV files identical but for 1 LSB in Karplus-Strong),
+     with the Karplus-Strong device time under torch.profiler.
 
 The port's path must not load jax, matplotlib or the JAX package
-(audio_analysis_tpu). The last lines are the per-file JSON, the kernels'
-JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+(audio_analysis_tpu). The last lines are the per-file JSON, the phase-9
+(`per_file_rest`) JSON, the kernels' JSON, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 There is no CPU fallback: without CUDA the script exits non-zero at once.
 """
 
@@ -110,6 +127,14 @@ SUMMARY_TOLERANCES = {
 }
 # the fixture file of each per-file command under tests/golden/reference/
 FIXTURES = {"fr": "frequency_response", "groupdelay": "group_delay"}
+# phase 9: the card run against the --device cpu run; the exact grid is
+# host float64 on both sides (tests/test_reference_parity.py
+# EXACT_TOLERANCES), the z-plane radii within tests/parity_matrix.py's
+# order-32 tolerance
+REST_TOLERANCES = {"filter": (5e-3, 1.0), "exact_filter": (1e-6, 0.051), "exact_fr": (1e-6, 0.051),
+                   "exact_groupdelay": (1e-6, 0.0051), "zplane": (8e-2, 5e-3)}
+AR_ORDER = 256
+GRAM_MAX_REL_ERR = 1e-5
 
 
 def log(msg: str) -> None:
@@ -722,6 +747,20 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
     return out
 
 
+def run_cli_text(torch, main, argv) -> tuple:
+    """(wall seconds ending in a synchronize, stdout) of one CLI call."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, text.getvalue()
+
+
 def read_launches(counters, fn):
     """fn() with every kernel's launch counter set to 0 just before and read
     just after; the counts, whatever they are."""
@@ -762,8 +801,6 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
     kernel run against the plain run, K1 / K2 launches of one run against
     the expected counts, and the golden IR's summaries on the card against
     the reference tool's."""
-    import contextlib
-    import io
     import shutil
 
     import numpy as np
@@ -805,14 +842,7 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
                                 "--sweep_wav_file_path", str(sweep)], None, (0, 0)))
 
     def run(argv):
-        """(wall seconds ending in a synchronize, stdout) of one CLI call."""
-        text = io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
-            cli_main(argv)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, text.getvalue()
+        return run_cli_text(torch, cli_main, argv)
 
     results = {}
     for i, (label, argv, wav, want) in enumerate(runs):
@@ -869,6 +899,221 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
         fixture = REPO / "tests" / "golden" / "reference" / f"{FIXTURES.get(cmd, cmd)}.txt"
         assert_summaries_agree(fixture.read_text(), text, *tol, f"{cmd} golden IR vs reference")
     log("per-file: the golden IR's eight summaries on the card agree with the reference tool's")
+    return results
+
+def zplane_lines(text: str) -> list:
+    """(channel, poles, max|p|, median|p|, unstable) of each line of a
+    z-plane summary."""
+    pat = re.compile(r"- (\S+): poles=(\d+), max\|p\|=([\d.]+), median\|p\|=([\d.]+), unstable\(\|p\|>=1\)=(\d+)")
+    rows = [pat.match(line) for line in text.splitlines()[1:]]
+    if not rows or not all(rows):
+        raise AssertionError(f"z-plane summary not understood:\n{text}")
+    return [(m.group(1), int(m.group(2)), float(m.group(3)), float(m.group(4)), int(m.group(5))) for m in rows]
+
+
+def compare_zplane(card: str, cpu: str, label: str) -> list:
+    """The card's z-plane summary against the CPU's: channels and pole
+    counts exact, radii within REST_TOLERANCES["zplane"]; returns the
+    channels whose unstable-pole count differs (logged, a finding)."""
+    rel, abs_ = REST_TOLERANCES["zplane"]
+    flips = []
+    for a, b in zip(zplane_lines(card), zplane_lines(cpu), strict=True):
+        if a[:2] != b[:2]:
+            raise AssertionError(f"{label}: pole counts differ: {a} vs {b}")
+        for x, y in zip(a[2:4], b[2:4]):
+            if abs(x - y) > max(abs_, rel * max(abs(x), abs(y))):
+                raise AssertionError(f"{label}: radii differ: {a} vs {b}")
+        if a[4] != b[4]:
+            flips.append({"channel": a[0], "card": a[4], "cpu": b[4]})
+    return flips
+
+
+def ar_gram_check(torch, tap: Path, dev) -> dict:
+    """The AR Gram of zplane's default fit of the tap (order 256, the
+    trimmed and peak-normalised stereo segment) alone: CUDA-event time of
+    one call, its bound (the float32 products over the valid rows at 67
+    TFLOP/s, or the segment read once and the Gram written once), the
+    float64 Gram of the same segment on the card, and the peak memory."""
+    from _ar_reference import ar_normal_equations_f64, relative_frobenius
+
+    from audio_analysis_tpu_torch.analyses._common import FileDsp
+    from audio_analysis_tpu_torch.ops import spectral
+
+    dsp = FileDsp.from_wav_file(tap, False, dev)
+    aligned = dsp.aligned(True, 0.0, None)
+    seg, lengths = aligned.samples, aligned.length
+    seg = seg / seg.abs().amax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    got = spectral.ar_normal_equations(seg, lengths, AR_ORDER)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    ms = time_ms(lambda: spectral.ar_normal_equations(seg, lengths, AR_ORDER))
+    t0 = time.perf_counter()
+    gram, moment = ar_normal_equations_f64(seg, lengths, AR_ORDER)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    err = relative_frobenius(got.gram, gram)
+    moment_err = relative_frobenius(got.moment[:, None, :], moment[:, None, :])
+    rows = sum(max(0, min(int(n), seg.shape[-1]) - AR_ORDER) for n in lengths.tolist())
+    flops = 2.0 * rows * (AR_ORDER * AR_ORDER + AR_ORDER)
+    b, by = bound(seg.numel() * 4 + got.gram.numel() * 4 + got.moment.numel() * 4, flops)
+    out = {"shape": list(seg.shape), "order": AR_ORDER, "rows": rows, "ms": ms, "bound_ms": b, "bound_by": by,
+           "bound_share": b / ms, "flop": flops, "tflop_per_s": flops / ms / 1e9, "peak_gib": peak,
+           "rel_frobenius_vs_f64": err, "moment_rel_err_vs_f64": moment_err, "f64_reference_s": f64_s}
+    log(f"AR Gram ({seg.shape[0]}, {seg.shape[-1]}) order {AR_ORDER}: {ms:.3f} ms, bound {b:.3f} ms ({by}), "
+        f"{b / ms:.0%} of bound, {flops / ms / 1e9:.1f} TFLOP/s; peak {peak:.3f} GiB; relative Frobenius "
+        f"error against float64 on the card {err:.3g} (moment {moment_err:.3g})")
+    if not err <= GRAM_MAX_REL_ERR:
+        raise AssertionError(f"AR Gram: relative Frobenius error {err} against float64 > {GRAM_MAX_REL_ERR}")
+    return out
+
+
+def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: dict) -> dict:
+    """Phase 9: filter, the --exact-grid runs, zplane and ir through the
+    analyse CLI, and the gen CLI, on the card, each cold, warm, under
+    torch.profiler (on the tap) and against --device cpu; K1 and K2 must
+    launch 0 times in each. The AR Gram alone against its bound and a
+    float64 Gram."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from audio_analysis_tpu_torch.cli.gen_cli import main as gen_main
+    from audio_analysis_tpu_torch.signals import torchgen
+
+    from _summary_parity import assert_summaries_agree, json_skeleton
+
+    out_dir = REPO / "build" / "chip_smoke_per_file_rest"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    tap = root / "taps" / "tap00.wav"
+    verb = REPO / "examples" / "gallery" / "verb_ir.wav"
+    zero = {c.name: 0 for c in counters}
+
+    # (label, argv without --input / --json / --device, tolerance key)
+    runs = [
+        ("filter", ["filter", "--no_show"], "filter"),
+        ("filter --exact-grid", ["filter", "--no_show", "--exact-grid"], "exact_filter"),
+        ("fr --exact-grid", ["fr", "--no_show", "--exact-grid"], "exact_fr"),
+        ("groupdelay --exact-grid", ["groupdelay", "--no-show", "--exact-grid"], "exact_groupdelay"),
+        ("zplane", ["zplane", "--no-show"], "zplane"),
+        ("zplane --zeros --ridge 1e-5", ["zplane", "--no-show", "--zeros", "--ridge", "1e-5"], "zplane"),
+        ("ir", ["ir", "--no_show"], "ir"),
+    ]
+    results = {"unstable_count_flips": {}}
+    for wav, where in ((tap, "tap"), (verb, "verb_ir")):
+        for i, (label, argv, tol) in enumerate(runs):
+            key = f"{label} {where}" if wav == verb else label
+
+            def full(name, device):
+                return [argv[0], "--input", str(wav), *argv[1:], "--json", str(out_dir / f"{where}{i}_{name}.json"),
+                        "--device", device]
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            (cold, card_out), launches = read_launches(counters, lambda: run_cli_text(torch, cli_main, full("card", "cuda")))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            if launches != zero:
+                raise AssertionError(f"{key}: K1/K2 launches {launches}, expected none")
+            launches_by_path[key] = launches
+            warm, _ = run_cli_text(torch, cli_main, full("card", "cuda"))
+            entry = {"cold_s": cold, "warm_s": warm, "peak_device_memory_gib": peak, "launches": launches}
+            if wav == tap:
+                entry["warm_profiled"] = device_busy(torch, lambda: run_cli_text(torch, cli_main, full("card", "cuda")))
+            # zplane at order 256 on the CPU: on the shorter verb_ir.wav only
+            if not (argv[0] == "zplane" and wav == tap):
+                entry["cpu_s"], cpu_out = run_cli_text(torch, cli_main, full("cpu", "cpu"))
+                ours = json.loads((out_dir / f"{where}{i}_card.json").read_text())
+                ref = json.loads((out_dir / f"{where}{i}_cpu.json").read_text())
+                if json_skeleton(ours) != json_skeleton(ref):
+                    raise AssertionError(f"{key}: JSON keys of the card run and the CPU run differ")
+                if argv[0] == "ir":
+                    if ours != ref or card_out.splitlines()[1:] != cpu_out.splitlines()[1:]:
+                        raise AssertionError(f"{key}: the card run and the CPU run differ")
+                elif argv[0] == "zplane":
+                    flips = compare_zplane(card_out.split("\n", 1)[1], cpu_out.split("\n", 1)[1], key)
+                    if flips:
+                        results["unstable_count_flips"][key] = flips
+                        log(f"  {key}: unstable-pole count differs between the card and the CPU: {flips}")
+                else:
+                    assert_summaries_agree(
+                        cpu_out.split("\n", 1)[1], card_out.split("\n", 1)[1], *REST_TOLERANCES[tol], key
+                    )
+            results[key] = entry
+            log(f"per-file {key}: cold {cold:.3f} s, warm {warm:.3f} s, cpu {entry.get('cpu_s', float('nan')):.3f} s, "
+                f"peak {peak:.3f} GiB, launches {launches}")
+            if "warm_profiled" in entry:
+                log(f"  warm under the profiler: {entry['warm_profiled']}")
+            if wav == tap or argv[0] == "zplane":
+                log("  " + card_out.rstrip().replace("\n", "\n  "))
+
+    results["ar_gram"] = ar_gram_check(torch, tap, dev)
+
+    # gen: the default tone set in stereo, and Karplus-Strong at 110 Hz
+    # (L = 436, 220 steps) and at 4 kHz (L = 12, 7999 steps)
+    gen_runs = [
+        ("gen all --channel_mode stereo", ["--channel_mode", "stereo"], ["all"]),
+        ("gen karplus_pluck --freq 110", [], ["karplus_pluck", "--freq", "110"]),
+        ("gen karplus_pluck --freq 4000", [], ["karplus_pluck", "--freq", "4000"]),
+    ]
+    for label, flags, command in gen_runs:
+        dirs = {side: out_dir / "gen" / label.replace(" ", "_") / side for side in ("card", "cpu")}
+
+        def gen(side):
+            device = "cuda" if side == "card" else "cpu"
+            return run_cli_text(torch, gen_main, ["--output-dir", str(dirs[side]), *flags, "--device", device,
+                                                  *command])
+
+        (cold, card_out), launches = read_launches(counters, lambda: gen("card"))
+        if launches != zero:
+            raise AssertionError(f"{label}: K1/K2 launches {launches}, expected none")
+        launches_by_path[label] = launches
+        warm, _ = gen("card")
+        busy = device_busy(torch, lambda: gen("card"))
+        cpu_s, cpu_out = gen("cpu")
+        if card_out.replace(str(dirs["card"]), "D") != cpu_out.replace(str(dirs["cpu"]), "D"):
+            raise AssertionError(f"{label}: stdout differs between the card and the CPU")
+        names = sorted(p.name for p in dirs["cpu"].glob("*.wav"))
+        if not names or sorted(p.name for p in dirs["card"].glob("*.wav")) != names:
+            raise AssertionError(f"{label}: WAV files {names}")
+        identical = []
+        for name in names:
+            a, b = (dirs["card"] / name).read_bytes(), (dirs["cpu"] / name).read_bytes()
+            identical.append(a == b)
+            if a != b:
+                x, y = wavfile.read(dirs["card"] / name)[1], wavfile.read(dirs["cpu"] / name)[1]
+                lsb = int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+                if not name.startswith("karplus_pluck") or x.shape != y.shape or lsb > 1:
+                    raise AssertionError(f"{label}: {name} differs between the card and the CPU ({lsb} LSB)")
+        results[label] = {"cold_s": cold, "warm_s": warm, "cpu_s": cpu_s, "warm_profiled": busy,
+                          "launches": launches, "wavs_identical": all(identical)}
+        log(f"{label}: cold {cold:.3f} s, warm {warm:.3f} s, cpu {cpu_s:.3f} s, {len(names)} WAVs, "
+            f"identical to the CPU run: {all(identical)}; warm under the profiler: {busy}")
+
+    # the Karplus-Strong recurrence alone on the card (host clock ending in
+    # a synchronize: the loop is launch-bound)
+    ks = {}
+    for freq in (110.0, 4000.0):
+        delay = max(2, int(round(SR / freq)))
+        init = torch.randn(delay, generator=torch.Generator().manual_seed(1)).to(dev)
+
+        def one():
+            torchgen.karplus_strong_scan(init, 2 * SR, 0.996, 0.5)
+            torch.cuda.synchronize()
+
+        one()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one()
+            walls.append(time.perf_counter() - t0)
+        ks[f"{freq:.0f}"] = {"delay_len": delay, "steps": -(-2 * SR // delay) - 1, "wall_s": walls,
+                             "profiled": device_busy(torch, one)}
+        log(f"Karplus-Strong {freq:.0f} Hz (L = {delay}): {min(walls) * 1e3:.2f}-{max(walls) * 1e3:.2f} ms; "
+            f"under the profiler {ks[f'{freq:.0f}']['profiled']}")
+    results["karplus_strong_alone"] = ks
     return results
 
 
@@ -980,15 +1225,24 @@ def main() -> int:
     t0 = time.perf_counter()
     per_file = per_file_commands(torch, cli_main, root, dev, counters, launches_by_path)
     phases["per_file_s"] = time.perf_counter() - t0
+
+    # 9. the rest of the per-file commands and the gen CLI
+    t0 = time.perf_counter()
+    rest = per_file_rest(torch, cli_main, root, dev, counters, launches_by_path)
+    phases["per_file_rest_s"] = time.perf_counter() - t0
     phases["launches_by_path"] = launches_by_path
 
+    # every module the paths loaded, the new ones of phase 9 included
+    reached = ("analyses.filterplot", "analyses.zplane", "analyses.impulse_response", "signals.torchgen",
+               "cli.gen_cli")
+    missing = [m for m in reached if "audio_analysis_tpu_torch." + m not in sys.modules]
     banned = sorted(
         m for m in sys.modules
         if m in ("jax", "matplotlib", "audio_analysis_tpu")
         or m.startswith(("jax.", "matplotlib.", "audio_analysis_tpu."))
     )
-    if banned:
-        raise AssertionError(f"the port's path imported {banned}")
+    if banned or missing:
+        raise AssertionError(f"the port's path imported {banned}; did not load {missing}")
     log("phases " + json.dumps(phases))
 
     kernels = [
@@ -1006,6 +1260,7 @@ def main() -> int:
         if not all(math.isfinite(v) for v in numbers):
             raise AssertionError(f"non-finite measurement for {k['name']}")
     print(json.dumps({"per_file": per_file}))
+    print(json.dumps({"per_file_rest": rest}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

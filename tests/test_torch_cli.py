@@ -2,13 +2,15 @@
 against the JAX CLI's engine-path and per-file subcommands, and `batch`
 and `bundle --bands-decimate` end to end on the CPU against the JAX CLI.
 
-- Every option of the JAX parser's bundle, batch, watch and compare
-  subcommands, and of its nine per-file subcommands (decay, rt60bands, fr,
-  groupdelay, spectrogram, diffusion, waterfall, modalcloud, deconvolve),
-  parses in the port's parser to the same destination and value (so the
-  same defaults), and is then either accepted, refused by the JAX CLI's
-  own argument validation with its message, or refused as "not yet
-  ported" by name. The port adds only `--device`.
+- The port's parser has every subcommand of the JAX parser. Every option
+  of the JAX parser's bundle, batch, watch and compare subcommands, of its
+  per-file subcommands (ir, zplane, decay, rt60bands, fr, filter,
+  groupdelay, spectrogram, diffusion, waterfall, modalcloud, deconvolve)
+  and of `report`, parses in the port's parser to the same destination
+  and value (so the same defaults), and is then either accepted, refused
+  by the JAX CLI's own argument validation with its message, or refused
+  as "not yet ported" by name (`report` as a whole). The port adds only
+  `--device`.
 - Without CUDA every subcommand that touches the device exits before any
   side effect unless `--device cpu` is given.
 - bundle_metrics.json of `batch --no-plots` and of `bundle --no-plots
@@ -45,9 +47,12 @@ REQUIRED = {
     "compare": ["prev", "cur"],
     "deconvolve": ["--recorded_wav_file_path", "r.wav", "--sweep_wav_file_path", "s.wav"],
     "groupdelay": ["--input", "x.wav", "--no-show"],
+    "zplane": ["--input", "x.wav", "--no-show"],
+    "report": ["--input", "x.wav", "--output", "unused"],
     **{
         command: ["--input", "x.wav", "--no_show"]
-        for command in ("decay", "rt60bands", "fr", "spectrogram", "diffusion", "waterfall", "modalcloud")
+        for command in ("ir", "decay", "rt60bands", "fr", "filter", "spectrogram", "diffusion", "waterfall",
+                        "modalcloud")
     },
 }
 VALUES = {"--tap-shard": ["0/2"], "--coordinator": ["host:1234"]}
@@ -103,7 +108,16 @@ def test_port_parser_covers_the_jax_surface(command):
                 assert str(exc.code) == str(jax_exc.value.code), option
                 continue
             refused = torch_cli._not_yet_ported(command, args)
+            if command == "report":
+                assert refused == "report (the plot report)", option
+                continue
             assert refused is None or refused in action.option_strings, (option, refused)
+
+
+def test_port_parser_has_every_jax_subcommand():
+    jax_sub = next(a for a in jax_cli.build_parser()._actions if isinstance(a, argparse._SubParsersAction))
+    port_sub = next(a for a in torch_cli.build_parser()._actions if isinstance(a, argparse._SubParsersAction))
+    assert sorted(port_sub.choices) == sorted(jax_sub.choices) == sorted(REQUIRED)
 
 
 @pytest.mark.parametrize(

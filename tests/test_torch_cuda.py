@@ -1,16 +1,20 @@
 """GPU-only copies of the kernel comparisons: each CUDA kernel of the port
 against its plain torch version on the card, the engine on the card
-against the engine on the CPU, and the per-file analyses on the card
-against the same call on the CPU. Marked `cuda`; every test skips where
-torch.cuda.is_available() is false. JAX is not needed (the card's machine
-has none). On the card:
+against the engine on the CPU, the per-file analyses on the card against
+the same call on the CPU, the AR Gram in float32 on the card against a
+float64 Gram on the card, and Karplus-Strong on the card against the CPU.
+Marked `cuda`; every test skips where torch.cuda.is_available() is false.
+JAX is not needed (the card's machine has none). On the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances: EDC 0.02 dB above -100 dB, exact 0 past `length`; STFT
 max |err| / max(ref) < 1e-5; engine flags and counts exact, metrics as in
 tests/test_torch_engine.py; per-file summaries as in
-tests/test_reference_parity.py (TOLERANCES).
+tests/test_reference_parity.py (TOLERANCES), the z-plane as in
+tests/parity_matrix.py; the AR Gram within 1e-5 relative Frobenius (float32
+sums of up to 65536 products a chunk); Karplus-Strong identical (the same
+float32 operations in the same order).
 """
 
 import dataclasses
@@ -21,12 +25,15 @@ import pytest
 import torch
 
 import golden_utils
+import parity_matrix
+from _ar_reference import ar_normal_equations_f64, relative_frobenius
 from _summary_parity import assert_summaries_agree
-from audio_analysis_tpu_torch.analyses import decay, modalcloud, rt60bands, spectrogram
+from audio_analysis_tpu_torch import signals
+from audio_analysis_tpu_torch.analyses import decay, filterplot, modalcloud, rt60bands, spectrogram, zplane
 from audio_analysis_tpu_torch.analyses._common import FileDsp
 from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
 from audio_analysis_tpu_torch.engine.batch import band_masks
-from audio_analysis_tpu_torch.ops import edc, fftmask, stft
+from audio_analysis_tpu_torch.ops import edc, fftmask, spectral, stft
 from test_reference_parity import TOLERANCES
 
 pytestmark = pytest.mark.cuda
@@ -226,11 +233,24 @@ PER_FILE = {
                                spectrogram.summarise_spectrogram_results_text, "spectrogram", (0, 0)),
     "modalcloud": (modalcloud.analyse_modal_cloud_channels, modalcloud.ModalCloudAnalysisSettings(),
                    modalcloud.summarise_modal_cloud_results_text, "modalcloud", (0, 1)),
+    "filter": (filterplot.analyse_filter_response_channels, filterplot.FilterAnalysisSettings(),
+               filterplot.summarise_filter_response_results_text, "filterplot", (0, 0)),
+    "filter_radians_no_unwrap": (filterplot.analyse_filter_response_channels,
+                                 filterplot.FilterAnalysisSettings(phase_mode="radians", unwrap_phase=False),
+                                 filterplot.summarise_filter_response_results_text, "filterplot", (0, 0)),
+    "zplane_order16": (zplane.analyse_zplane_channels, zplane.ZPlaneAnalysisSettings(ar_order=16),
+                       zplane.summarise_zplane_results_text, (2e-2, 5e-3), (0, 0)),
+    "zplane_order32_ridge_zeros": (zplane.analyse_zplane_channels,
+                                   zplane.ZPlaneAnalysisSettings(ar_order=32, ridge_lambda=1e-5, derive_zeros=True,
+                                                                 zero_order=16),
+                                   zplane.summarise_zplane_results_text, (8e-2, 5e-3), (0, 0)),
 }
 
 
-def _golden_dsp(device) -> FileDsp:
-    ir = golden_utils.make_golden_ir()
+def _golden_dsp(device, case: str = "") -> FileDsp:
+    # the z-plane fits run on the matrix's damped IR (poles well inside the
+    # unit circle; tests/parity_matrix.make_damped_ir)
+    ir = parity_matrix.make_damped_ir() if case.startswith("zplane") else golden_utils.make_golden_ir()
     return FileDsp([("left", ir[:, 0]), ("right", ir[:, 1])], 48_000, device)
 
 
@@ -240,10 +260,10 @@ def test_per_file_analysis_on_card_matches_cpu(dev, case):
     many times as listed, K2 not at all at n_fft 3000) and on the CPU."""
     analyse, settings, summarise, tolerance, launches = PER_FILE[case]
     before = (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches)
-    got = summarise(analyse(_golden_dsp(dev), settings))
+    got = summarise(analyse(_golden_dsp(dev, case), settings))
     assert (edc.EDC_KERNEL.launches - before[0], stft.STFT_KERNEL.launches - before[1]) == launches
-    ref = summarise(analyse(_golden_dsp("cpu"), settings))
-    assert_summaries_agree(ref, got, *TOLERANCES[tolerance], case)
+    ref = summarise(analyse(_golden_dsp("cpu", case), settings))
+    assert_summaries_agree(ref, got, *(TOLERANCES[tolerance] if isinstance(tolerance, str) else tolerance), case)
 
 
 @pytest.mark.parametrize("n_fft", [3000, 32768])
@@ -258,3 +278,29 @@ def test_stft_sizes_outside_the_kernel_take_the_plain_route_on_card(dev, n_fft):
     assert a.shape == b.shape and torch.equal(got.num_frames.cpu(), ref.num_frames)
     loud = b > b.max() - 80.0
     assert (a - b).abs()[loud].max().item() <= 0.01
+
+
+@pytest.mark.parametrize("channels,n,order", [(2, 1 << 20, 256), (1, 100_000, 64), (2, 4096, 300)])
+def test_ar_gram_on_card_matches_float64_on_card(dev, channels, n, order):
+    """The float32 Gram and moment of a decaying-noise segment (the last
+    channel cut short) against float64 ones built by index gather, both on
+    the card."""
+    g = torch.Generator().manual_seed(n + order)
+    t = torch.arange(n, dtype=torch.float32) / 48_000
+    x = torch.randn(channels, n, generator=g) * torch.pow(10.0, -3.0 * t / 1.2)
+    lengths = torch.full((channels,), n, dtype=torch.int32)
+    lengths[-1] = n - n // 3
+    x = torch.where(torch.arange(n) < lengths[:, None], x, 0.0).to(dev)
+    lengths = lengths.to(dev)
+    got = spectral.ar_normal_equations(x, lengths, order)
+    assert got.gram.device.type == "cuda" and got.gram.dtype == torch.float32
+    gram, moment = ar_normal_equations_f64(x, lengths, order)
+    assert relative_frobenius(got.gram, gram) <= 1e-5
+    assert relative_frobenius(got.moment[:, None, :], moment[:, None, :]) <= 1e-4
+
+
+@pytest.mark.parametrize("freq", [110.0, 4000.0])
+def test_karplus_strong_on_card_equals_cpu(dev, freq):
+    got = signals.generate_karplus_strong_pluck(fundamental_frequency_hz=freq, duration_seconds=0.5, device=dev)
+    ref = signals.generate_karplus_strong_pluck(fundamental_frequency_hz=freq, duration_seconds=0.5, device="cpu")
+    assert got.samples.dtype == np.float32 and np.array_equal(got.samples, ref.samples)

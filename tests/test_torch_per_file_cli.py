@@ -1,16 +1,19 @@
-"""The port's per-file subcommands (decay, rt60bands, fr, groupdelay,
-spectrogram, diffusion, waterfall, modalcloud, deconvolve) through its CLI
-entry on the CPU, against the JAX CLI on the same files.
+"""The port's per-file subcommands (ir, zplane, decay, rt60bands, fr,
+filter, groupdelay, spectrogram, diffusion, waterfall, modalcloud,
+deconvolve; fr, filter and groupdelay also with --exact-grid) through its
+CLI entry on the CPU, against the JAX CLI on the same files.
 
-- stdout: the JAX CLI's lines ("Wrote JSON: <path>", then the summary)
-  with the same structure and every number within the module's tolerance
-  of tests/test_reference_parity.py (TOLERANCES); `deconvolve` prints the
-  JAX CLI's lines exactly, and writes a WAV with the JAX one's header.
+- stdout: the JAX CLI's lines ("Wrote JSON: <path>", then the summary;
+  `ir` prints only the first) with the same structure and every number
+  within the module's tolerance of tests/test_reference_parity.py
+  (TOLERANCES, EXACT_TOLERANCES for --exact-grid; the z-plane at order 32
+  within tests/parity_matrix.py's order-16 tolerance); `deconvolve` prints
+  the JAX CLI's lines exactly, and writes a WAV with the JAX one's header.
 - --json: the same keys and leaf types as the JAX CLI's file.
 - Refused before any side effect, with "not yet ported" and the flag's
   name: --output, a run without --no_show / --no-show (the figures), and
-  --exact-grid. Without CUDA, every per-file command exits unless
-  --device cpu is given.
+  `report`. Without CUDA, every per-file command exits unless --device
+  cpu is given.
 """
 
 import json
@@ -27,7 +30,7 @@ import parity_matrix  # noqa: E402
 from _summary_parity import assert_summaries_agree, json_skeleton  # noqa: E402
 from audio_analysis_tpu.cli import analyse_cli as jax_cli  # noqa: E402
 from audio_analysis_tpu_torch.cli import analyse_cli as torch_cli  # noqa: E402
-from test_reference_parity import TOLERANCES  # noqa: E402
+from test_reference_parity import EXACT_TOLERANCES, TOLERANCES  # noqa: E402
 from test_torch_analyses import _write  # noqa: E402
 
 torch.set_num_threads(2)
@@ -48,7 +51,19 @@ CASES = [
     ("waterfall", ["waterfall", "--no_show"], "waterfall"),
     ("modalcloud", ["modalcloud", "--no_show"], "modalcloud"),
     ("modalcloud_n_fft_32768", ["modalcloud", "--no_show", "--n_fft", "32768"], "modalcloud"),
+    ("filter", ["filter", "--no_show"], "filterplot"),
+    ("zplane_order_32", ["zplane", "--no-show", "--ar-order", "32"], "zplane"),
+    ("ir", ["ir", "--no_show"], "ir"),
+    ("fr_exact_grid", ["fr", "--no_show", "--exact-grid"], "exact_frequency_response"),
+    ("groupdelay_exact_grid", ["groupdelay", "--no-show", "--exact-grid"], "exact_group_delay"),
+    ("filter_exact_grid", ["filter", "--no_show", "--exact-grid"], "exact_filterplot"),
 ]
+CASE_TOLERANCES = {
+    **TOLERANCES,
+    **{"exact_" + module: tol for module, tol in EXACT_TOLERANCES.items()},
+    "zplane": (2e-2, 5e-3),
+    "ir": (0.0, 0.0),  # no summary: the JSON line alone
+}
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +85,7 @@ def test_per_file_stdout_and_json_match_jax_cli(golden_wav, tmp_path, capsys, ar
     theirs = _stdout(capsys, jax_cli.main, cmd + ["--json", str(theirs_json)])
     assert ours.splitlines()[0] == f"Wrote JSON: {ours_json}"
     assert theirs.splitlines()[0] == f"Wrote JSON: {theirs_json}"
-    rel, abs_ = TOLERANCES[module]
+    rel, abs_ = CASE_TOLERANCES[module]
     assert_summaries_agree(theirs.split("\n", 1)[1], ours.split("\n", 1)[1], rel, abs_, argv[0])
     assert ours.endswith("\n") and ours.count("\n") == theirs.count("\n")
     assert json_skeleton(json.loads(ours_json.read_text())) == json_skeleton(json.loads(theirs_json.read_text()))
@@ -102,26 +117,32 @@ def test_deconvolve_cli_matches_jax_cli(tmp_path, capsys):
         (["decay"], "--no_show"),
         (["waterfall"], "--no_show"),
         (["groupdelay"], "--no-show"),
-        (["fr", "--no_show", "--exact-grid"], "--exact-grid"),
-        (["groupdelay", "--no-show", "--exact-grid"], "--exact-grid"),
+        (["filter", "--no_show", "--exact-grid", "--output", "plots/x"], "--output"),
+        (["zplane", "--ar-order", "16"], "--no-show"),
+        (["ir", "--no_show", "--output", "plots/x"], "--output"),
+        (["report", "--output", "plots/x", "--no-ir"], "report"),
     ],
     ids=["decay-output", "spectrogram-output", "decay-show", "waterfall-show", "groupdelay-show",
-         "fr-exact-grid", "groupdelay-exact-grid"],
+         "filter-output", "zplane-show", "ir-output", "report"],
 )
 def test_per_file_figures_and_exact_grid_are_refused(golden_wav, tmp_path, argv, flag):
     out = tmp_path / "out.json"
+    json_flag = [] if argv[0] == "report" else ["--json", str(out)]  # report has no --json
     with pytest.raises(SystemExit) as exc:
-        torch_cli.main([argv[0], "--input", golden_wav, *argv[1:], "--json", str(out), "--device", "cpu"])
+        torch_cli.main([argv[0], "--input", golden_wav, *argv[1:], *json_flag, "--device", "cpu"])
     message = str(exc.value.code)
     assert "not yet ported" in message and flag in message
     assert not out.exists()
 
 
-@pytest.mark.parametrize("command", ["decay", "modalcloud", "deconvolve"])
+@pytest.mark.parametrize("command", ["decay", "modalcloud", "deconvolve", "zplane", "filter", "ir"])
 def test_without_cuda_the_per_file_commands_exit_unless_cpu(golden_wav, tmp_path, command):
     argv = {
         "decay": ["decay", "--input", golden_wav, "--no_show"],
         "modalcloud": ["modalcloud", "--input", golden_wav, "--no_show"],
+        "zplane": ["zplane", "--input", golden_wav, "--no-show", "--ar-order", "16"],
+        "filter": ["filter", "--input", golden_wav, "--no_show", "--exact-grid"],
+        "ir": ["ir", "--input", golden_wav, "--no_show"],
         "deconvolve": ["deconvolve", "--recorded_wav_file_path", golden_wav, "--sweep_wav_file_path", golden_wav,
                        "--output_ir_wav_file_path", str(tmp_path / "ir.wav")],
     }[command]

@@ -18,6 +18,11 @@ Tolerances, each with its reason:
   decaying-noise IR (ill-conditioned in float32) within 2e-2 relative or
   5 samples, the reference-parity tolerance.
 - deconvolve_spectral: within 1e-5 of the peak (float32 FFTs).
+- ar_normal_equations: the float32 Gram within 1e-6 relative Frobenius of
+  a float64 Gram built by index gather (tests/_ar_reference.py), the
+  moment within 1e-5 (a sum with cancellation); the JAX package's float32
+  Gram is held to the same bounds. The host solve, poles and FIR zeros
+  are the JAX package's numpy code: identical on identical input.
 - quantize_db_i16: exact int16, half-way values included.
 - the WAV helpers: byte-identical arrays, headers and files;
   results_to_json: the identical text.
@@ -46,6 +51,7 @@ from audio_analysis_tpu.ops import spectral as jspectral  # noqa: E402
 from audio_analysis_tpu.ops import stft as jstft  # noqa: E402
 from audio_analysis_tpu.ops import trim as jtrim  # noqa: E402
 from audio_analysis_tpu.utils import jsonio as jjsonio  # noqa: E402
+from _ar_reference import ar_normal_equations_f64, relative_frobenius  # noqa: E402
 from audio_analysis_tpu_torch.io import wav  # noqa: E402
 from audio_analysis_tpu_torch.ops import common, diffusion, display, edc, logfreq, spectral, stft, trim  # noqa: E402
 from audio_analysis_tpu_torch.utils import jsonio  # noqa: E402
@@ -178,6 +184,46 @@ def test_deconvolve_spectral_matches_jax(regularization):
         theirs = np.asarray(jspectral.deconvolve_spectral(jnp.asarray(recorded), jnp.asarray(sweep), 8192, regularization))
     assert got.shape == theirs.shape == (1, 2, 8192)
     assert np.abs(got - theirs).max() <= 1e-5 * np.abs(theirs).max()
+
+
+# (N, order, chunk, valid lengths): one chunk, chunk edges with masked
+# rows, several chunks, a row count not a multiple of the chunk
+@pytest.mark.parametrize(
+    "n,order,chunk,lengths",
+    [(8192, 16, 65536, (8192, 5000)), (4096, 32, 1000, (4096, 3000)), (1 << 16, 64, 65536, (1 << 16, 40000)),
+     (20000, 7, 999, (19999, 123))],
+)
+def test_ar_normal_equations_match_float64_and_jax(n, order, chunk, lengths):
+    rng = np.random.default_rng(n + order)
+    t = np.arange(n) / 48_000
+    x = (rng.standard_normal((2, n)) * np.exp(-t / 0.3)).astype(np.float32)
+    lens = np.array(lengths, np.int32)
+    for i, length in enumerate(lens):
+        x[i, length:] = 0.0
+    got = spectral.ar_normal_equations(torch.from_numpy(x), torch.from_numpy(lens), order, chunk=chunk)
+    theirs = jspectral.ar_normal_equations(jnp.asarray(x), jnp.asarray(lens), order, chunk=chunk)
+    gram, moment = ar_normal_equations_f64(torch.from_numpy(x), torch.from_numpy(lens), order)
+    assert got.gram.dtype == torch.float32 and got.gram.shape == (2, order, order)
+    assert got.moment.shape == (2, order)
+    for g, m in ((got.gram, got.moment), (torch.from_numpy(np.asarray(theirs.gram)),
+                                          torch.from_numpy(np.asarray(theirs.moment)))):
+        assert relative_frobenius(g, gram) <= 1e-6
+        assert relative_frobenius(m[:, None, :], moment[:, None, :]) <= 1e-5
+
+
+def test_ar_solve_poles_and_zeros_match_jax():
+    rng = np.random.default_rng(2)
+    x = np.zeros((1, 4096), np.float32)
+    x[0, :3000] = rng.standard_normal(3000) * np.exp(-np.arange(3000) / 400.0)
+    normal = jspectral.ar_normal_equations(jnp.asarray(x), jnp.asarray(np.array([3000], np.int32)), 24)
+    gram, moment = np.asarray(normal.gram)[0], np.asarray(normal.moment)[0]
+    for ridge in (0.0, 1e-5):
+        a = spectral.solve_ar_coefficients(gram, moment, ridge)
+        assert np.array_equal(a, jspectral.solve_ar_coefficients(gram, moment, ridge))
+        assert np.array_equal(spectral.ar_poles(a), jspectral.ar_poles(a))
+        b = spectral.derive_fir_numerator_from_ar(a, x[0, :3000].astype(np.float64), 16)
+        assert np.array_equal(b, jspectral.derive_fir_numerator_from_ar(a, x[0, :3000].astype(np.float64), 16))
+    assert spectral.ar_poles(np.array([1.0, 0.0, 1e-15])).size == 0
 
 
 def test_quantize_db_i16_is_exact_against_jax():
