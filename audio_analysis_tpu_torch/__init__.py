@@ -11,8 +11,12 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
   engine/   the fused per-chunk analysis (analyze_batch) and the pipelined
             bundle host entry (analyze_bundle_pipelined)
   report/   the engine bundle report (per-tap markdown + bundle_metrics.json),
-            the run-to-run comparison and the bundle watcher
-  analyses/ the per-file analyses (analysis and summary halves)
+            the run-to-run comparison, the bundle watcher, and the plot
+            reports (report.report, report.bundle, report.warmup)
+  analyses/ the per-file analyses, their summaries and figures
+  plot/     matplotlib helpers (house style, figure templates, display
+            decimation), imported only by the figure functions
+  parallel/ the render thread and the spawn-based render process pool
   signals/  the test-tone generators (numpy; Karplus-Strong on the device)
   cli/      `python -m audio_analysis_tpu_torch.cli <command>` (the analyse
             CLI) and `python -m audio_analysis_tpu_torch.cli.gen_cli`
@@ -20,7 +24,8 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
             the repo's C++ decoder cpp/audioio.cpp)
   csrc/     CUDA sources, built with nvcc at first use (_build.py)
 
-Nothing here imports jax, matplotlib or the JAX package audio_analysis_tpu.
+Nothing here imports jax or the JAX package audio_analysis_tpu; matplotlib
+is imported only when a figure is drawn.
 
 Float32 matrix products and convolutions run in full float32: TF32 keeps
 about three decimal digits, and low-precision products were measured to

@@ -82,6 +82,12 @@ def load_channels(
     return get_analysis_channels(loaded, use_mono_downmix_for_stereo), loaded.sample_rate_hz
 
 
+def suffixed_png(output_basename: str | Path, suffix: str) -> Path:
+    """<basename><suffix>.png next to the basename (the PNG suffix contract)."""
+    base = Path(output_basename)
+    return base.with_name(f"{base.stem}{suffix}.png")
+
+
 class FileDsp:
     """
     One file's channels on a torch device.

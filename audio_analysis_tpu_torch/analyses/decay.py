@@ -1,11 +1,13 @@
 """
 Decay analysis: Schroeder EDC + T20/T30/EDT line fits + RT60
-(audio_analysis_tpu/analyses/decay.py, analysis and summary; the figure is
-not ported yet). Fits: T20 -5..-25 dB, T30 -5..-35 dB, EDT 0..-10 dB,
-RT60 = -60/slope.
+(audio_analysis_tpu/analyses/decay.py): fits T20 -5..-25 dB, T30 -5..-35
+dB, EDT 0..-10 dB, RT60 = -60/slope; the summary, and the figure
+`<basename>_decay.png` (the EDC of each channel min-max decimated, the fit
+lines, the range markers).
 
 Every channel's EDC is one call of kernel K1 (ops.edc) on the file's
-device, and every fit one batched call (ops.dbfit).
+device, and every fit one batched call (ops.dbfit). matplotlib is imported
+by the figure functions only.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from audio_analysis_tpu_torch.analyses._common import (
     fetch_db_plane_i16,
     fetch_packed,
     single_channel_dsp,
+    suffixed_png,
 )
 from audio_analysis_tpu_torch.ops import dbfit, edc
 
@@ -62,6 +65,13 @@ class ChannelDecayAnalysis:
     edc_db: np.ndarray
     early_decay_10db_time_seconds: Optional[float]
     fits: Dict[str, LinearDecayFit]
+
+
+@dataclass(frozen=True)
+class DecayPlotSettings:
+    show_fit_lines: bool = True
+    secondary_channel_alpha: float = 0.7
+    ylim_db: Tuple[float, float] = (-120.0, 5.0)
 
 
 # the fields of a dbfit.DecayFit that a LinearDecayFit carries, fetched
@@ -173,6 +183,132 @@ def analyse_decay_from_wav_file(
     if dsp is None:
         dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
     return analyse_decay_channels(dsp, settings)
+
+
+def _decay_plot_lines(
+    channel_analyses: List[ChannelDecayAnalysis],
+    plot_settings: DecayPlotSettings,
+) -> List[tuple]:
+    """(x, y, Line2D kwargs) of every line of the decay figure: each
+    channel's EDC (min-max decimated to display resolution) and its fit
+    lines with their labels."""
+    from audio_analysis_tpu_torch import plot
+
+    lines: List[tuple] = []
+    for idx, result in enumerate(channel_analyses):
+        alpha = 1.0 if idx == 0 else float(plot_settings.secondary_channel_alpha)
+        t_plot, edc_plot = plot.decimate_minmax(result.time_seconds, result.edc_db)
+        lines.append((t_plot, edc_plot, {"alpha": alpha, "label": None}))
+        if not plot_settings.show_fit_lines:
+            continue
+        for fit_name in ("EDT", "T20", "T30"):
+            fit = result.fits.get(fit_name)
+            if fit is None:
+                continue
+            t_line = np.array([fit.start_time_seconds, fit.end_time_seconds], np.float32)
+            y_line = fit.slope_db_per_second * t_line + fit.intercept_db
+            if fit.name == "EDT":
+                if result.early_decay_10db_time_seconds is not None:
+                    label = (
+                        f"EDT {result.channel_name}  {fit.rt60_seconds:.2f}s  "
+                        f"Δ10dB={result.early_decay_10db_time_seconds:.3f}s"
+                    )
+                else:
+                    label = f"EDT {result.channel_name}  {fit.rt60_seconds:.2f}s  Δ10dB=NA"
+            else:
+                label = f"{fit.name} {result.channel_name}  {fit.rt60_seconds:.2f}s"
+            lines.append((t_line, y_line, {"alpha": alpha, "linestyle": "--", "label": label}))
+    return lines
+
+
+def _decay_axhlines(axis, analysis_settings: DecayAnalysisSettings) -> None:
+    axis.axhline(float(analysis_settings.t20_range_db[0]), linestyle=":", linewidth=1.0)
+    axis.axhline(float(analysis_settings.t20_range_db[1]), linestyle=":", linewidth=1.0)
+    axis.axhline(float(analysis_settings.t30_range_db[1]), linestyle=":", linewidth=1.0)
+    axis.axhline(float(analysis_settings.fit_lower_limit_db), linestyle=":", linewidth=1.0)
+
+
+def plot_decay_figure(
+    channel_analyses: List[ChannelDecayAnalysis],
+    analysis_settings: DecayAnalysisSettings,
+    plot_settings: DecayPlotSettings,
+    title: Optional[str] = None,
+):
+    from audio_analysis_tpu_torch import plot
+
+    figure, axis = plot.create_figure_and_axis(title=title)
+    plot.label_time_axis_seconds(axis)
+    plot.label_decibel_axis(axis)
+    axis.set_ylim(*plot_settings.ylim_db)
+    for x, y, props in _decay_plot_lines(channel_analyses, plot_settings):
+        axis.plot(x, y, **props)
+    _decay_axhlines(axis, analysis_settings)
+    axis.grid(True, which="both", linestyle=":", linewidth=0.5)
+    axis.legend(loc="best")
+    return figure
+
+
+def render_decay_plots(
+    results: List[ChannelDecayAnalysis],
+    analysis_settings: DecayAnalysisSettings,
+    plot_settings: DecayPlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+    title_source: str | Path,
+) -> None:
+    """Figure and save only (host matplotlib); results come from analyse_*.
+    The saved figure goes through the line-figure template, which mirrors
+    plot_decay_figure; a tap whose set of found fits differs rebuilds."""
+    from audio_analysis_tpu_torch import plot
+
+    title = f"Decay (EDC) — {title_source}"
+    output_path = None if output_basename is None else suffixed_png(output_basename, "_decay")
+    if output_path is None or show_interactive:
+        figure = plot_decay_figure(results, analysis_settings, plot_settings, title=title)
+        plot.finalize_and_show_or_save(figure, output_path, show_interactive)
+        return
+
+    def build_extras(axis):
+        _decay_axhlines(axis, analysis_settings)
+
+    def setup(axis):
+        plot.label_time_axis_seconds(axis)
+        plot.label_decibel_axis(axis)
+        axis.set_ylim(*plot_settings.ylim_db)
+        axis.grid(True, which="both", linestyle=":", linewidth=0.5)
+
+    plot.render_line_figure(
+        "decay",
+        (analysis_settings, plot_settings, tuple(r.channel_name for r in results)),
+        title,
+        _decay_plot_lines(results, plot_settings),
+        output_path,
+        show_interactive,
+        legend_kwargs={"loc": "best"},
+        setup=setup,
+        build_extras=build_extras,
+    )
+
+
+def plot_decay_from_wav_file(
+    input_wav_file_path: str | Path,
+    analysis_settings: Optional[DecayAnalysisSettings] = None,
+    plot_settings: Optional[DecayPlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelDecayAnalysis]:
+    """Analyse, then draw; writes <basename>_decay.png when saving."""
+    if analysis_settings is None:
+        analysis_settings = DecayAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = DecayPlotSettings()
+    results = analyse_decay_from_wav_file(input_wav_file_path, analysis_settings, dsp=dsp, device=device)
+    render_decay_plots(
+        results, analysis_settings, plot_settings, output_basename, show_interactive, input_wav_file_path
+    )
+    return results
 
 
 def summarise_decay_results_text(channel_analyses: List[ChannelDecayAnalysis]) -> str:

@@ -1,12 +1,12 @@
 """
 Diffusion / decorrelation over time (audio_analysis_tpu/analyses/
-diffusion.py, analysis and summary; the figure is not ported yet): per
-window the max |autocorrelation| and the echo density, and for a stereo
-file corr0 and IACC on L/R aligned at the peak of the (L+R)/2 downmix,
-with the per-metric median summary.
+diffusion.py): per window the max |autocorrelation| and the echo density,
+and for a stereo file corr0 and IACC on L/R aligned at the peak of the
+(L+R)/2 downmix, with the per-metric median summary and the one combined
+figure `<basename>_diffusion.png`.
 
 Every window and lag comes from batched torch.fft correlations
-(ops.diffusion).
+(ops.diffusion). matplotlib is imported by the figure function only.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from audio_analysis_tpu_torch.analyses._common import (
     fetch_packed,
     pad_to_bucket,
     single_channel_dsp,
+    suffixed_png,
 )
 from audio_analysis_tpu_torch.ops import diffusion as dops
 from audio_analysis_tpu_torch.ops import trim
@@ -165,6 +166,68 @@ def analyse_diffusion_from_wav_file(
         )
         for res in results
     ]
+
+
+def render_diffusion_plots(
+    results: List[DiffusionChannelResult],
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+    title_source: str | Path,
+) -> None:
+    """Figure and save only (host matplotlib), through the line-figure
+    template; results come from analyse_*."""
+    from audio_analysis_tpu_torch import plot
+
+    lines = []
+    for ch_i, r in enumerate(results):
+        alpha = 1.0 if ch_i == 0 else 0.7
+        lines.append(
+            (r.series.time_seconds, r.series.max_abs_autocorr, {"alpha": alpha, "label": f"max|autocorr| {r.channel_name}"})
+        )
+        lines.append(
+            (
+                r.series.time_seconds,
+                r.series.echo_density,
+                {"alpha": alpha, "linestyle": "--", "label": f"echo_density {r.channel_name}"},
+            )
+        )
+    if results and results[0].series.corr0 is not None and results[0].series.iacc_max is not None:
+        series = results[0].series
+        lines.append((series.time_seconds, series.corr0, {"linestyle": ":", "label": "corr0 (L,R)"}))
+        lines.append((series.time_seconds, series.iacc_max, {"linestyle": "-.", "label": "IACC max (±lag)"}))
+
+    def setup(axis):
+        plot.label_time_axis_seconds(axis)
+        axis.set_ylabel("Metric (unitless)")
+        axis.set_ylim(-0.05, 1.25)
+        axis.grid(True, which="both", linestyle=":", linewidth=0.5)
+
+    output_path = None if output_basename is None else suffixed_png(output_basename, "_diffusion")
+    plot.render_line_figure(
+        "diffusion",
+        (tuple(r.channel_name for r in results),),
+        f"Diffusion — {title_source}",
+        lines,
+        output_path,
+        show_interactive,
+        legend_kwargs={"loc": "best"},
+        setup=setup,
+    )
+
+
+def plot_diffusion_from_wav_file(
+    input_wav_file_path: str | Path,
+    analysis_settings: Optional[DiffusionAnalysisSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[DiffusionChannelResult]:
+    if analysis_settings is None:
+        analysis_settings = DiffusionAnalysisSettings()
+    results = analyse_diffusion_from_wav_file(input_wav_file_path, analysis_settings, dsp=dsp, device=device)
+    render_diffusion_plots(results, output_basename, show_interactive, input_wav_file_path)
+    return results
 
 
 def summarise_diffusion_results_text(results: List[DiffusionChannelResult]) -> str:

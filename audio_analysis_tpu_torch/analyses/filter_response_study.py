@@ -1,14 +1,16 @@
 """
 One-pole filter cutoff-mapping study (audio_analysis_tpu/analyses/
-filter_response_study.py), the numbers half: the realised attenuation at
-the requested cutoff of the exponential ("analog RC") and the prewarped
-bilinear pole mappings, as deviations from the ideal -3.01 dB. The figure
-(`plot_study`) is not ported yet.
+filter_response_study.py): the realised attenuation at the requested
+cutoff of the exponential ("analog RC") and the prewarped bilinear pole
+mappings, as deviations from the ideal -3.01 dB, and their figure. Run as:
+
+    python -m audio_analysis_tpu_torch.analyses.filter_response_study [out.png]
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import sys
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -45,3 +47,21 @@ def attenuation_error_curves(
         mag = onepole_magnitude_at_fc(mapping(fc, sr), fc, sr)
         err.append(20.0 * np.log10(np.maximum(mag, 1e-12)) - TARGET_DB_AT_FC)
     return fc, err[0], err[1]
+
+
+def plot_study(output_path: Optional[str] = None) -> None:
+    from audio_analysis_tpu_torch import plot
+
+    fc, err_exp, err_tan = attenuation_error_curves()
+    figure, axis = plot.create_figure_and_axis(title="One-pole cutoff mapping error at fc")
+    axis.plot(fc, err_exp, label="p = exp(-2πfc/sr)")
+    axis.plot(fc, err_tan, label="p = (1-tan)/(1+tan) (prewarped)")
+    axis.axhline(0.0, linestyle=":", linewidth=1.0)
+    plot.apply_log_hz_xaxis(axis, fc[0], fc[-1])
+    axis.set_ylabel("Attenuation error at fc (dB, vs -3.01 dB)")
+    axis.legend(loc="best")
+    plot.finalize_and_show_or_save(figure, output_path, show_interactive=output_path is None)
+
+
+if __name__ == "__main__":
+    plot_study(sys.argv[1] if len(sys.argv) > 1 else None)

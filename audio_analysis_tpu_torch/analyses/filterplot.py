@@ -1,19 +1,21 @@
 """
 Filter frequency response, magnitude and phase (audio_analysis_tpu/
-analyses/filterplot.py, analysis and summary; the figure is not ported
-yet): one rfft per channel (ops.spectral.segment_spectrum) gives the dB
-magnitude, the phase (unwrapped by default, in degrees or radians), the
-peak within [f_min, f_max] and the magnitude at the bin nearest 1 kHz.
+analyses/filterplot.py): one rfft per channel
+(ops.spectral.segment_spectrum) gives the dB magnitude, the phase
+(unwrapped by default, in degrees or radians), the peak within [f_min,
+f_max] and the magnitude at the bin nearest 1 kHz; the summary, and the
+two-panel figure `<basename>_filter.png`.
 
 `exact_grid` runs the host float64 numpy version on the reference's exact
-segment-length FFT grid instead, as the JAX package does.
+segment-length FFT grid instead, as the JAX package does. matplotlib is
+imported by the figure functions only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +25,7 @@ from audio_analysis_tpu_torch.analyses._common import (
     fetch_packed,
     host_aligned_segments,
     single_channel_dsp,
+    suffixed_png,
 )
 from audio_analysis_tpu_torch.ops import spectral
 
@@ -41,6 +44,13 @@ class FilterAnalysisSettings:
     unwrap_phase: bool = True
     # host float64 numpy on the reference's exact segment-length FFT grid
     exact_grid: bool = False
+
+
+@dataclass(frozen=True)
+class FilterPlotSettings:
+    secondary_channel_alpha: float = 0.7
+    magnitude_ylim_db: Optional[Tuple[float, float]] = None
+    phase_ylim: Optional[Tuple[float, float]] = None
 
 
 @dataclass(frozen=True)
@@ -182,6 +192,107 @@ def analyse_filter_response_from_wav_file(
     if dsp is None:
         dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
     return analyse_filter_response_channels(dsp, settings)
+
+
+def plot_filter_response_figure(
+    channel_results: List[ChannelFilterResponse],
+    analysis_settings: FilterAnalysisSettings,
+    plot_settings: FilterPlotSettings,
+    title: str,
+):
+    """Magnitude (dB) above, phase below, on log-frequency axes."""
+    import matplotlib.pyplot as plt
+    import matplotlib.ticker as mticker
+
+    from audio_analysis_tpu_torch import plot
+
+    if not channel_results:
+        raise ValueError("No channel results to plot.")
+    nyquist = 0.5 * float(channel_results[0].sample_rate_hz)
+    f_min = float(np.clip(analysis_settings.f_min_hz, 1.0, nyquist))
+    f_max = float(np.clip(analysis_settings.f_max_hz, f_min, nyquist))
+
+    figure, (ax_mag, ax_phase) = plt.subplots(2, 1, figsize=(10, 8))
+    figure.suptitle(title, fontsize=12, fontweight="bold")
+    for ax, ylabel in ((ax_mag, "Magnitude (dB)"), (ax_phase, None)):
+        ax.set_xscale("log")
+        ax.set_xlabel("Frequency (Hz)")
+        ax.xaxis.set_major_formatter(mticker.FuncFormatter(lambda v, p: f"{v:.0f}"))
+        ax.set_xlim(f_min, f_max)
+        ax.grid(True, which="both", linestyle=":", linewidth=0.5)
+        if ylabel:
+            ax.set_ylabel(ylabel)
+    phase_unit = "degrees" if analysis_settings.phase_mode == "degrees" else "radians"
+    ax_phase.set_ylabel(f"Phase ({phase_unit})")
+
+    def _sel(r):
+        return (r.frequency_hz >= f_min) & (r.frequency_hz <= f_max)
+
+    if plot_settings.magnitude_ylim_db is None:
+        y = np.concatenate([r.magnitude_db[_sel(r)] for r in channel_results])
+        if y.size:
+            ax_mag.set_ylim(np.percentile(y, 1.0) - 6.0, np.percentile(y, 99.5) + 6.0)
+    else:
+        ax_mag.set_ylim(plot_settings.magnitude_ylim_db)
+    if plot_settings.phase_ylim is None:
+        ph = np.concatenate([r.phase_response[_sel(r)] for r in channel_results])
+        if ph.size:
+            lo, hi = np.percentile(ph, 1.0), np.percentile(ph, 99.0)
+            margin = (hi - lo) * 0.1
+            ax_phase.set_ylim(lo - margin, hi + margin)
+    else:
+        ax_phase.set_ylim(plot_settings.phase_ylim)
+
+    for idx, r in enumerate(channel_results):
+        alpha = 1.0 if idx == 0 else float(plot_settings.secondary_channel_alpha)
+        f_mag, m_plot = plot.decimate_minmax_log(r.frequency_hz, r.magnitude_db, f_min, f_max)
+        ax_mag.plot(
+            f_mag, m_plot, alpha=alpha,
+            label=f"{r.channel_name}  peak={r.peak_frequency_hz:.0f}Hz  @1kHz={r.magnitude_at_1khz_db:.1f}dB",
+        )
+        f_ph, p_plot = plot.decimate_minmax_log(r.frequency_hz, r.phase_response, f_min, f_max)
+        ax_phase.plot(f_ph, p_plot, alpha=alpha, label=r.channel_name)
+    ax_mag.legend(loc="best", fontsize=9)
+    ax_phase.legend(loc="best", fontsize=9)
+    plt.tight_layout()
+    return figure
+
+
+def render_filter_response_plots(
+    results: List[ChannelFilterResponse],
+    analysis_settings: FilterAnalysisSettings,
+    plot_settings: FilterPlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+    title_source: str | Path,
+) -> None:
+    """Figure and save only (host matplotlib); results come from analyse_*."""
+    from audio_analysis_tpu_torch import plot
+
+    figure = plot_filter_response_figure(
+        results, analysis_settings, plot_settings, title=f"Filter frequency response — {title_source}"
+    )
+    output_path = None if output_basename is None else suffixed_png(output_basename, "_filter")
+    plot.finalize_and_show_or_save(figure, output_path, show_interactive)
+
+
+def plot_filter_response_from_wav_file(
+    input_wav_file_path: str | Path,
+    analysis_settings: Optional[FilterAnalysisSettings] = None,
+    plot_settings: Optional[FilterPlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelFilterResponse]:
+    if analysis_settings is None:
+        analysis_settings = FilterAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = FilterPlotSettings()
+    results = analyse_filter_response_from_wav_file(input_wav_file_path, analysis_settings, device=device)
+    render_filter_response_plots(
+        results, analysis_settings, plot_settings, output_basename, show_interactive, input_wav_file_path
+    )
+    return results
 
 
 def summarise_filter_response_results_text(channel_results: List[ChannelFilterResponse]) -> str:

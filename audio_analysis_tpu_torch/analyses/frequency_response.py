@@ -1,9 +1,10 @@
 """
 Frequency response / magnitude spectrum (audio_analysis_tpu/analyses/
-frequency_response.py, analysis and summary; the figure is not ported
-yet): Hann window over the analysed segment, dB floor, optional
-log-frequency smoothing, the peak and the amplitude-weighted centroid over
-[f_min, f_max].
+frequency_response.py): Hann window over the analysed segment, dB floor,
+optional log-frequency smoothing, the peak and the amplitude-weighted
+centroid over [f_min, f_max], the summary, and the figure
+`<basename>_fr.png` (each channel's spectrum as a log-bucketed min-max
+envelope).
 
 One rfft (torch.fft) per channel at the padded bucket length, so the bin
 grid is finer than the reference's exact-length FFT, as in the JAX
@@ -11,14 +12,15 @@ package. The (C, F) dB plane reaches the host in the 1/128-dB fixed point;
 without smoothing the peak and centroid come from the full float32
 spectrum on the device, with smoothing from the smoothed host plane.
 `exact_grid` runs the host float64 numpy version on the reference's exact
-segment-length FFT grid instead, as the JAX package does.
+segment-length FFT grid instead, as the JAX package does. matplotlib is
+imported by the figure functions only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ from audio_analysis_tpu_torch.analyses._common import (
     fetch_packed,
     host_aligned_segments,
     single_channel_dsp,
+    suffixed_png,
 )
 from audio_analysis_tpu_torch.ops import logfreq, spectral
 
@@ -47,6 +50,12 @@ class FrequencyResponseAnalysisSettings:
     log_bins_per_octave: int = 96
     # host float64 numpy on the reference's exact segment-length FFT grid
     exact_grid: bool = False
+
+
+@dataclass(frozen=True)
+class FrequencyResponsePlotSettings:
+    secondary_channel_alpha: float = 0.7
+    ylim_db: Optional[Tuple[float, float]] = None
 
 
 @dataclass(frozen=True)
@@ -232,6 +241,138 @@ def analyse_frequency_response_from_wav_file(
     if dsp is None:
         dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
     return analyse_frequency_response_channels(dsp, settings)
+
+
+def _fr_band_limits(
+    channel_results: List[ChannelFrequencyResponse],
+    analysis_settings: FrequencyResponseAnalysisSettings,
+) -> Tuple[float, float]:
+    nyquist = 0.5 * float(channel_results[0].sample_rate_hz)
+    f_min = float(np.clip(analysis_settings.f_min_hz, 1.0, nyquist))
+    f_max = float(np.clip(analysis_settings.f_max_hz, f_min, nyquist))
+    return f_min, f_max
+
+
+def _fr_plot_lines(
+    channel_results: List[ChannelFrequencyResponse],
+    plot_settings: FrequencyResponsePlotSettings,
+    f_min: float,
+    f_max: float,
+) -> List[tuple]:
+    """(x, y, Line2D kwargs) of the FR figure: each spectrum as a
+    log-bucketed min-max envelope of display resolution."""
+    from audio_analysis_tpu_torch import plot
+
+    lines: List[tuple] = []
+    for idx, r in enumerate(channel_results):
+        alpha = 1.0 if idx == 0 else float(plot_settings.secondary_channel_alpha)
+        f_plot, m_plot = plot.decimate_minmax_log(r.frequency_hz, r.magnitude_db, f_min, f_max)
+        label = f"{r.channel_name}  peak={r.peak_frequency_hz:.0f}Hz  centroid={r.spectral_centroid_hz:.0f}Hz"
+        lines.append((f_plot, m_plot, {"alpha": alpha, "label": label}))
+    return lines
+
+
+def _fr_axis_setup(
+    axis,
+    channel_results: List[ChannelFrequencyResponse],
+    plot_settings: FrequencyResponsePlotSettings,
+    f_min: float,
+    f_max: float,
+) -> None:
+    """The static FR axis configuration, idempotent (both render paths)."""
+    import matplotlib.ticker as mticker
+
+    from audio_analysis_tpu_torch import plot
+
+    axis.set_xscale("log")
+    axis.set_xticks([20, 50, 100, 200, 500, 1000, 2000, 5000, 10000, 20000])
+    axis.xaxis.set_major_formatter(mticker.FuncFormatter(plot.hz_tick_formatter))
+    axis.xaxis.set_minor_locator(mticker.NullLocator())  # majors carry the scale
+    axis.set_xlabel("Frequency (Hz)")
+    plot.label_decibel_axis(axis)
+    if plot_settings.ylim_db is not None:
+        axis.set_ylim(*plot_settings.ylim_db)
+    else:
+        vals = [r.magnitude_db[(r.frequency_hz >= f_min) & (r.frequency_hz <= f_max)] for r in channel_results]
+        y = np.concatenate(vals) if vals else np.array([], np.float32)
+        if y.size:
+            axis.set_ylim(float(np.percentile(y, 1.0)) - 6.0, float(np.percentile(y, 99.5)) + 6.0)
+    axis.set_xlim(f_min, f_max)
+    axis.grid(True, which="both", linestyle=":", linewidth=0.5)
+
+
+def plot_frequency_response_figure(
+    channel_results: List[ChannelFrequencyResponse],
+    analysis_settings: FrequencyResponseAnalysisSettings,
+    plot_settings: FrequencyResponsePlotSettings,
+    title: Optional[str] = None,
+):
+    from audio_analysis_tpu_torch import plot
+
+    figure, axis = plot.create_figure_and_axis(title=title)
+    f_min, f_max = _fr_band_limits(channel_results, analysis_settings)
+    for x, y, props in _fr_plot_lines(channel_results, plot_settings, f_min, f_max):
+        axis.plot(x, y, **props)
+    _fr_axis_setup(axis, channel_results, plot_settings, f_min, f_max)
+    axis.legend(loc="best")
+    return figure
+
+
+def render_frequency_response_plots(
+    results: List[ChannelFrequencyResponse],
+    analysis_settings: FrequencyResponseAnalysisSettings,
+    plot_settings: FrequencyResponsePlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+    title_source: str | Path,
+) -> None:
+    """Figure and save only (host matplotlib); results come from analyse_*.
+    The saved figure goes through the line-figure template, which mirrors
+    plot_frequency_response_figure."""
+    from audio_analysis_tpu_torch import plot
+
+    title = f"Frequency response (spectrum) — {title_source}"
+    output_path = None if output_basename is None else suffixed_png(output_basename, "_fr")
+    if output_path is None or show_interactive:
+        figure = plot_frequency_response_figure(results, analysis_settings, plot_settings, title=title)
+        plot.finalize_and_show_or_save(figure, output_path, show_interactive)
+        return
+
+    f_min, f_max = _fr_band_limits(results, analysis_settings)
+
+    def setup(axis):
+        _fr_axis_setup(axis, results, plot_settings, f_min, f_max)
+
+    plot.render_line_figure(
+        "frequency_response",
+        (analysis_settings, plot_settings, int(results[0].sample_rate_hz), len(results)),
+        title,
+        _fr_plot_lines(results, plot_settings, f_min, f_max),
+        output_path,
+        show_interactive,
+        legend_kwargs={"loc": "best"},
+        setup=setup,
+    )
+
+
+def plot_frequency_response_from_wav_file(
+    input_wav_file_path: str | Path,
+    analysis_settings: Optional[FrequencyResponseAnalysisSettings] = None,
+    plot_settings: Optional[FrequencyResponsePlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelFrequencyResponse]:
+    if analysis_settings is None:
+        analysis_settings = FrequencyResponseAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = FrequencyResponsePlotSettings()
+    results = analyse_frequency_response_from_wav_file(input_wav_file_path, analysis_settings, dsp=dsp, device=device)
+    render_frequency_response_plots(
+        results, analysis_settings, plot_settings, output_basename, show_interactive, input_wav_file_path
+    )
+    return results
 
 
 def summarise_frequency_response_results_text(channel_results: List[ChannelFrequencyResponse]) -> str:

@@ -1,26 +1,32 @@
 """
-Group delay vs frequency (audio_analysis_tpu/analyses/group_delay.py,
-analysis and summary; the figure is not ported yet): gd(w) = -dphi/dw in samples from the
-unwrapped rfft phase, optional bin smoothing, and the median / p10 / p90
-summary.
+Group delay vs frequency (audio_analysis_tpu/analyses/group_delay.py):
+gd(w) = -dphi/dw in samples from the unwrapped rfft phase, optional bin
+smoothing, the median / p10 / p90 summary, and one figure per channel
+`<basename>_groupdelay_<CH>.png`.
 
 The FFT (torch.fft) runs at the padded bucket length capped at 2^20, or
 at `fft_size` (the aligned segment cut or zero-padded to it on the
 device). `exact_grid` runs the host float64 numpy version at the
 reference's FFT size (next power of two of the segment, capped at 2^20)
-instead, as the JAX package does.
+instead, as the JAX package does. matplotlib is imported by the figure
+function only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from audio_analysis_tpu_torch.analyses._common import FileDsp, host_aligned_segments, single_channel_dsp
+from audio_analysis_tpu_torch.analyses._common import (
+    FileDsp,
+    host_aligned_segments,
+    single_channel_dsp,
+    suffixed_png,
+)
 from audio_analysis_tpu_torch.ops import spectral
 
 _MAX_FFT = 1 << 20
@@ -40,6 +46,13 @@ class GroupDelayAnalysisSettings:
     smoothing_bins: int = 0
     # host float64 numpy at the reference's exact FFT size
     exact_grid: bool = False
+
+
+@dataclass(frozen=True)
+class GroupDelayPlotSettings:
+    secondary_channel_alpha: float = 0.7
+    ylim_samples: Optional[Tuple[float, float]] = None
+    show_zero_line: bool = True
 
 
 @dataclass(frozen=True)
@@ -164,6 +177,71 @@ def analyse_group_delay_from_wav_file(
     if dsp is None:
         dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
     return analyse_group_delay_channels(dsp, settings)
+
+
+def render_group_delay_plots(
+    results: List[ChannelGroupDelayResult],
+    plot_settings: GroupDelayPlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+) -> None:
+    """Figures and save only (host matplotlib); results come from
+    analyse_*. Every figure goes through the line-figure template."""
+    import matplotlib.ticker as mticker
+
+    from audio_analysis_tpu_torch import plot
+
+    def setup(ax):
+        ax.set_xscale("log")
+        ax.set_xlabel("Frequency (Hz)")
+        ax.set_ylabel("Group delay (samples)")
+        ax.xaxis.set_major_formatter(mticker.ScalarFormatter())
+        ax.xaxis.set_minor_locator(mticker.NullLocator())  # majors carry the scale
+        if plot_settings.ylim_samples is not None:
+            ax.set_ylim(*plot_settings.ylim_samples)
+
+    def build_extras(ax):
+        if plot_settings.show_zero_line:
+            ax.axhline(0.0, linestyle="--", linewidth=1.0)
+
+    for result in results:
+        f_plot, g_plot = plot.decimate_minmax_log(
+            result.frequency_hz,
+            result.group_delay_samples,
+            float(result.frequency_hz[0]) if result.frequency_hz.size else 1.0,
+            float(result.frequency_hz[-1]) if result.frequency_hz.size else 2.0,
+        )
+        output_path = (
+            None if output_basename is None else suffixed_png(output_basename, f"_groupdelay_{result.channel_name}")
+        )
+        plot.render_line_figure(
+            "group_delay",
+            (plot_settings,),
+            f"Group delay ({result.channel_name})",
+            [(f_plot, g_plot, {})],
+            output_path,
+            show_interactive,
+            setup=setup,
+            build_extras=build_extras,
+        )
+
+
+def plot_group_delay_from_wav_file(
+    input_wav_file_path: str | Path,
+    settings: Optional[GroupDelayAnalysisSettings] = None,
+    plot_settings: Optional[GroupDelayPlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelGroupDelayResult]:
+    if settings is None:
+        settings = GroupDelayAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = GroupDelayPlotSettings()
+    results = analyse_group_delay_from_wav_file(input_wav_file_path, settings, dsp=dsp, device=device)
+    render_group_delay_plots(results, plot_settings, output_basename, show_interactive)
+    return results
 
 
 def summarise_group_delay_results_text(results: List[ChannelGroupDelayResult]) -> str:

@@ -1,18 +1,20 @@
 """
 Band-limited RT60 through the FFT-mask filterbank
-(audio_analysis_tpu/analyses/rt60bands.py, analysis and summary; the
-figure is not ported yet): band modes "three" | "octave" | "third",
-raised-cosine masks, the full-band trim shared by every band, and the
-tabular summary.
+(audio_analysis_tpu/analyses/rt60bands.py): band modes "three" | "octave"
+| "third", raised-cosine masks, the full-band trim shared by every band,
+the tabular summary, and the figure `<basename>_rt60bands.png` (grouped
+bars up to 6 bands, else lines over the band centres).
 
 The full signal is filtered (the padded-bucket filtering with no circular
 wrap that the JAX package documents in docs/MIGRATION.md), every band is
 shifted by its channel's full-band start, and the EDC of every (channel,
-band) is one call of kernel K1.
+band) is one call of kernel K1. matplotlib is imported by the figure
+functions only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -20,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from audio_analysis_tpu_torch.analyses._common import FileDsp, fetch_packed, single_channel_dsp
+from audio_analysis_tpu_torch.analyses._common import FileDsp, fetch_packed, single_channel_dsp, suffixed_png
 from audio_analysis_tpu_torch.analyses.decay import DecayAnalysisSettings
 from audio_analysis_tpu_torch.ops import dbfit, edc, fftmask, trim
 from audio_analysis_tpu_torch.ops.fftmask import BandDefinition
@@ -39,6 +41,13 @@ class Rt60BandsAnalysisSettings:
     include_t20: bool = False
     include_edt: bool = False
     decay_settings: DecayAnalysisSettings = field(default_factory=DecayAnalysisSettings)
+
+
+@dataclass(frozen=True)
+class Rt60BandsPlotSettings:
+    ylim_seconds: Optional[Tuple[float, float]] = None
+    secondary_channel_alpha: float = 0.7
+    legend_values: bool = True
 
 
 @dataclass(frozen=True)
@@ -192,6 +201,120 @@ def _metric_value(m: Rt60BandMetrics, metric: str) -> Optional[float]:
     if metric == "EDT":
         return m.edt_seconds
     raise ValueError(metric)
+
+
+def plot_rt60_bands_figure(
+    channel_results: List[Rt60BandsChannelResult],
+    settings: Rt60BandsAnalysisSettings,
+    plot_settings: Rt60BandsPlotSettings,
+    title: Optional[str] = None,
+):
+    """<= 6 bands: grouped bars; else a log-x line plot over the band centres."""
+    from audio_analysis_tpu_torch import plot
+
+    if not channel_results:
+        raise ValueError("No channel results to plot.")
+    bands = channel_results[0].band_definitions
+    band_names = [b.name for b in bands]
+    centres_hz = np.array([b.centre_hz for b in bands], np.float32)
+    metrics = ["T30"] + (["T20"] if settings.include_t20 else []) + (["EDT"] if settings.include_edt else [])
+
+    figure, axis = plot.create_figure_and_axis(title=title)
+
+    def values_of(channel: Rt60BandsChannelResult, metric: str) -> List[Optional[float]]:
+        return [
+            _metric_value(channel.band_metrics_by_name[b], metric) if b in channel.band_metrics_by_name else None
+            for b in band_names
+        ]
+
+    def label_for(metric: str, channel: Rt60BandsChannelResult, values: List[Optional[float]]) -> str:
+        if plot_settings.legend_values:
+            parts = [f"{band}={'NA' if v is None else f'{v:.2f}s'}" for band, v in zip(band_names, values)]
+            return f"{metric} {channel.channel_name}  " + "  ".join(parts)
+        return f"{metric} {channel.channel_name}"
+
+    if len(bands) <= 6:
+        axis.set_xlabel("Band")
+        axis.set_ylabel("RT60 (seconds)")
+        x = np.arange(len(bands), dtype=np.float32)
+        axis.set_xticks(x)
+        axis.set_xticklabels(band_names)
+        total_groups = len(metrics) * len(channel_results)
+        bar_width = 0.8 / max(1, total_groups)
+        offset_index = 0
+        for ch_i, channel in enumerate(channel_results):
+            alpha = 1.0 if ch_i == 0 else float(plot_settings.secondary_channel_alpha)
+            for metric in metrics:
+                values = values_of(channel, metric)
+                axis.bar(
+                    x + (offset_index - total_groups / 2) * bar_width + bar_width / 2,
+                    [np.nan if v is None else v for v in values],
+                    width=bar_width,
+                    alpha=alpha,
+                    label=label_for(metric, channel, values),
+                )
+                offset_index += 1
+        axis.grid(True, axis="y", linestyle=":", linewidth=0.5)
+    else:
+        axis.set_xlabel("Band centre frequency (Hz)")
+        axis.set_ylabel("RT60 (seconds)")
+        axis.set_xscale("log")
+        axis.grid(True, which="both", linestyle=":", linewidth=0.5)
+        linestyle = {"T30": "-", "T20": "--", "EDT": ":"}
+        for ch_i, channel in enumerate(channel_results):
+            alpha = 1.0 if ch_i == 0 else float(plot_settings.secondary_channel_alpha)
+            for metric in metrics:
+                values = values_of(channel, metric)
+                axis.plot(
+                    centres_hz,
+                    np.array([np.nan if v is None else v for v in values], np.float32),
+                    linestyle=linestyle[metric],
+                    marker="o",
+                    alpha=alpha,
+                    label=label_for(metric, channel, values),
+                )
+
+    if plot_settings.ylim_seconds is not None:
+        axis.set_ylim(*plot_settings.ylim_seconds)
+    axis.legend(loc="best")
+    return figure
+
+
+def render_rt60_bands_plots(
+    results: List[Rt60BandsChannelResult],
+    settings: Rt60BandsAnalysisSettings,
+    plot_settings: Rt60BandsPlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+    title_source: str | Path,
+) -> None:
+    """Figure and save only (host matplotlib); results come from analyse_*."""
+    from audio_analysis_tpu_torch import plot
+
+    # numeric legends are only readable for the 3-band mode
+    if plot_settings.legend_values and str(settings.band_mode).lower() in ("octave", "third"):
+        plot_settings = dataclasses.replace(plot_settings, legend_values=False)
+    figure = plot_rt60_bands_figure(results, settings, plot_settings, title=f"RT60 bands — {title_source}")
+    output_path = None if output_basename is None else suffixed_png(output_basename, "_rt60bands")
+    plot.finalize_and_show_or_save(figure, output_path, show_interactive)
+
+
+def plot_rt60_bands_from_wav_file(
+    input_wav_file_path: str | Path,
+    settings: Optional[Rt60BandsAnalysisSettings] = None,
+    plot_settings: Optional[Rt60BandsPlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[Rt60BandsChannelResult]:
+    if settings is None:
+        settings = Rt60BandsAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = Rt60BandsPlotSettings()
+    results = analyse_rt60_bands_from_wav_file(input_wav_file_path, settings, dsp=dsp, device=device)
+    render_rt60_bands_plots(results, settings, plot_settings, output_basename, show_interactive, input_wav_file_path)
+    return results
 
 
 def summarise_rt60_bands_results_text(

@@ -1,13 +1,15 @@
 """
 Z-plane poles (and optional FIR zeros) from an AR (all-pole) fit of an IR
-segment (audio_analysis_tpu/analyses/zplane.py, analysis and summary; the
-figure is not ported yet): covariance-method least squares with an
-optional ridge, poles from the companion polynomial, approximate zeros
-from the AR-filtered segment, and the RT60-from-pole-radius annotation.
+segment (audio_analysis_tpu/analyses/zplane.py): covariance-method least
+squares with an optional ridge, poles from the companion polynomial,
+approximate zeros from the AR-filtered segment, the summary, and one
+pole-cloud figure per channel `<basename>_zplane_<CH>.png` with the
+RT60-from-pole-radius annotation.
 
 The Gram accumulation over up to ~10^6 rows runs on the device as batched
 float32 products (ops.spectral.ar_normal_equations), every channel at
 once; the (p, p) float64 solve and the root finding run on the host.
+matplotlib is imported by the figure functions only.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from audio_analysis_tpu_torch.analyses._common import FileDsp, fetch_packed, single_channel_dsp
+from audio_analysis_tpu_torch.analyses._common import FileDsp, fetch_packed, single_channel_dsp, suffixed_png
 from audio_analysis_tpu_torch.ops import spectral
 from audio_analysis_tpu_torch.ops.common import bool_valid_mask
 
@@ -36,6 +38,15 @@ class ZPlaneAnalysisSettings:
     zero_order: int = 64
     normalise_segment: bool = True
     ridge_lambda: float = 0.0
+
+
+@dataclass(frozen=True)
+class ZPlanePlotSettings:
+    secondary_channel_alpha: float = 0.7
+    show_unit_circle: bool = True
+    show_axes: bool = True
+    limit_radius: float = 1.2
+    annotate_stats: bool = True
 
 
 @dataclass(frozen=True)
@@ -131,6 +142,85 @@ def analyse_zplane_from_wav_file(
     if dsp is None:
         dsp = FileDsp.from_wav_file(input_wav_file_path, settings.use_mono_downmix_for_stereo, device)
     return analyse_zplane_channels(dsp, settings)
+
+
+def render_zplane_plots(
+    results: List[ChannelZPlaneResult],
+    settings: ZPlaneAnalysisSettings,
+    plot_settings: ZPlanePlotSettings,
+    output_basename: Optional[str | Path],
+    show_interactive: bool,
+) -> None:
+    """One pole (and zero) cloud per channel with the unit circle and the
+    radius statistics; host matplotlib."""
+    from audio_analysis_tpu_torch import plot
+
+    for result in results:
+        fig, ax = plot.create_figure_and_axis(
+            title=f"Z-plane pole cloud ({result.channel_name})", figure_size=(7.5, 7.5)
+        )
+        if plot_settings.show_axes:
+            ax.axhline(0.0, linewidth=1.0)
+            ax.axvline(0.0, linewidth=1.0)
+        if plot_settings.show_unit_circle:
+            t = np.linspace(0.0, 2.0 * np.pi, 512)
+            ax.plot(np.cos(t), np.sin(t), linestyle="--", linewidth=1.0)
+        poles = result.poles
+        if poles.size:
+            ax.scatter(np.real(poles), np.imag(poles), marker="x", s=30, label="Poles")
+        if result.zeros is not None and result.zeros.size:
+            ax.scatter(
+                np.real(result.zeros), np.imag(result.zeros), marker="o", s=18, facecolors="none", label="Zeros"
+            )
+        ax.set_aspect("equal", adjustable="box")
+        lim = float(plot_settings.limit_radius)
+        ax.set_xlim(-lim, lim)
+        ax.set_ylim(-lim, lim)
+        ax.set_xlabel("Re{z}")
+        ax.set_ylabel("Im{z}")
+        ax.legend(loc="upper right")
+        if plot_settings.annotate_stats and poles.size:
+            radii = np.abs(poles)
+            med_r, max_r = float(np.median(radii)), float(np.max(radii))
+            rt60_med = rt60_from_pole_radius(min(med_r, 0.999999), result.sample_rate_hz)
+            rt60_max = rt60_from_pole_radius(min(max_r, 0.999999), result.sample_rate_hz)
+            ax.text(
+                0.02,
+                0.02,
+                (
+                    f"AR order: {int(settings.ar_order)}\n"
+                    f"poles: {poles.size}\n"
+                    f"unstable (|p|>=1): {int(np.sum(radii >= 1.0))}\n"
+                    f"radius median: {med_r:.6f}\n"
+                    f"radius max: {max_r:.6f}\n"
+                    f"RT60~ (median r): {rt60_med:.3f} s\n"
+                    f"RT60~ (max r): {rt60_max:.3f} s"
+                ),
+                transform=ax.transAxes,
+                fontsize=9,
+                va="bottom",
+                ha="left",
+            )
+        output_path = None if output_basename is None else suffixed_png(output_basename, f"_zplane_{result.channel_name}")
+        plot.finalize_and_show_or_save(fig, output_path, show_interactive)
+
+
+def plot_zplane_from_wav_file(
+    input_wav_file_path: str | Path,
+    settings: Optional[ZPlaneAnalysisSettings] = None,
+    plot_settings: Optional[ZPlanePlotSettings] = None,
+    output_basename: Optional[str | Path] = None,
+    show_interactive: bool = True,
+    dsp: Optional[FileDsp] = None,
+    device: "str | torch.device" = "cuda",
+) -> List[ChannelZPlaneResult]:
+    if settings is None:
+        settings = ZPlaneAnalysisSettings()
+    if plot_settings is None:
+        plot_settings = ZPlanePlotSettings()
+    results = analyse_zplane_from_wav_file(input_wav_file_path, settings, dsp=dsp, device=device)
+    render_zplane_plots(results, settings, plot_settings, output_basename, show_interactive)
+    return results
 
 
 def summarise_zplane_results_text(results: List[ChannelZPlaneResult]) -> str:

@@ -1,3 +1,4 @@
 from audio_analysis_tpu_torch.cli.analyse_cli import main
 
-main()
+if __name__ == "__main__":
+    main()

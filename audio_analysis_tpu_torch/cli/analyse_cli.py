@@ -4,10 +4,12 @@ audio_analysis_tpu/cli/analyse_cli.py with the same flags, defaults,
 messages, stdout and exit codes.
 
     python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots [--compare PREV --fail-on-change]
-    python -m audio_analysis_tpu_torch.cli batch --inputs a.wav b.wav --output <dir> --no-plots
-    python -m audio_analysis_tpu_torch.cli watch --input <recorder output dir>
+    python -m audio_analysis_tpu_torch.cli bundle --input <root> [--resume] [--tap-shard I/N] [--plot-processes N]
+    python -m audio_analysis_tpu_torch.cli batch --inputs a.wav b.wav --output <dir> [--no-plots]
+    python -m audio_analysis_tpu_torch.cli watch --input <recorder output dir> [--plots]
     python -m audio_analysis_tpu_torch.cli compare <previous run> <current run>
-    python -m audio_analysis_tpu_torch.cli decay --input ir.wav --no_show [--json out.json]
+    python -m audio_analysis_tpu_torch.cli report --input ir.wav --output <dir>/<base>
+    python -m audio_analysis_tpu_torch.cli decay --input ir.wav [--output <base>] [--no_show] [--json out.json]
         (likewise ir, rt60bands, fr, filter, spectrogram, diffusion,
         waterfall, modalcloud; groupdelay and zplane spell it --no-show;
         fr, filter and groupdelay take --exact-grid)
@@ -15,18 +17,20 @@ messages, stdout and exit codes.
 
 `--device` picks the torch device (default cuda; `--device cpu` runs the
 plain torch versions of the kernels on the host). Without CUDA, a command
-that takes --device exits at once unless `--device cpu` is given.
-Flags of the JAX CLI whose paths are not ported yet are refused with a
-"not yet ported" exit: the plot reports (`report`, `bundle`/`batch`
-without --no-plots, `--resume`, `--tap-shard`, `watch --plots`),
-`--multi-host`, and the figures of the per-file commands (`--output`, or a
-run without `--no_show` / `--no-show`).
+that takes --device exits at once unless `--device cpu` is given. Figures
+(`report`, `bundle`/`batch` without --no-plots, `watch --plots`, a per-file command with
+--output or without --no_show / --no-show) need matplotlib: where it does
+not import, such a command exits before any work with a message naming
+it. Under a headless backend the interactive show is a no-op, as in the
+JAX CLI. `--multi-host` (and its coordinator flags) is not ported yet
+and is refused with a "not yet ported" exit.
 """
 
 from __future__ import annotations
 
 import argparse
 from dataclasses import replace
+from functools import partial
 from typing import Optional, Sequence
 
 import torch
@@ -77,11 +81,10 @@ def _add_input(p: argparse.ArgumentParser) -> None:
 
 
 def _add_output_noshow(p: argparse.ArgumentParser, help_text: str, underscore: bool) -> None:
-    p.add_argument("--output", dest="output_basename", type=str, default=None,
-                   help=help_text + " (figures: not yet ported)")
+    p.add_argument("--output", dest="output_basename", type=str, default=None, help=help_text)
     flag = "--no_show" if underscore else "--no-show"
     p.add_argument(flag, dest="no_show", action="store_true",
-                   help="Do not display plots (required: the figures are not yet ported).")
+                   help="Do not display plots interactively (useful when saving files).")
     p.add_argument("--json", dest="json_path", type=str, default=None,
                    help="Also write the result tree as JSON to this path.")
 
@@ -128,19 +131,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input", dest="bundle_root", type=str, required=True)
     p.add_argument("--reports-subdir", dest="reports_subdir", type=str, default="reports")
     p.add_argument("--resume", action="store_true",
-                   help="Skip taps whose report already exists (plot reports: not yet "
-                        "ported).")
+                   help="Skip taps whose report already exists.")
     p.add_argument("--mono", dest="use_mono_downmix", action="store_true",
                    help="Downmix stereo to mono in every tap report.")
     p.add_argument("--no-plots", dest="no_plots", action="store_true",
-                   help="Engine fast path: text/JSON metric reports only (required: the "
-                        "plot reports are not yet ported).")
+                   help="Engine fast path: text/JSON metric reports only, one fused device "
+                        "pass a chunk of taps (no PNG rendering).")
     p.add_argument("--bands", dest="band_mode", type=str, default="three",
                    choices=["three", "octave", "third"],
                    help="RT60 band mode (rt60bands.py band modes).")
     _add_engine_config_flags(p)
     p.add_argument("--plot-processes", dest="plot_processes", type=int, default=0,
-                   help="Plot render processes (not yet ported).")
+                   help="Render figures on a process pool of this many workers "
+                        "(multi-core hosts); 0 = single render thread.")
     p.add_argument("--compare", dest="compare_to", type=str, default=None, metavar="PREV",
                    help="With --no-plots: diff this run's headline metrics against a "
                         "previous run's bundle_metrics.json (file, reports dir, or bundle "
@@ -153,7 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fail-on-change", dest="fail_on_change", action="store_true",
                    help="With --compare: exit 3 when any change is flagged.")
     p.add_argument("--tap-shard", dest="tap_shard", type=str, default=None, metavar="I/N",
-                   help="Shard the plot bundle (not yet ported).")
+                   help="Render only taps with index %% N == I (0-based): fan the plot "
+                        "bundle over N processes or machines sharing the filesystem, then "
+                        "merge the index with one --resume run.")
     p.add_argument("--multi-host", dest="multi_host", action="store_true",
                    help="Multi-host engine path (not yet ported).")
     p.add_argument("--coordinator", dest="coordinator", type=str, default=None,
@@ -167,7 +172,7 @@ def build_parser() -> argparse.ArgumentParser:
         "batch",
         help="Analyse a set of loose WAV files as one batch: materialises a "
              "bundle view (meta.json + tap symlinks) in --output, then runs "
-             "the engine bundle path over it (--no-plots).",
+             "the bundle path over it (plot reports, or --no-plots).",
     )
     p.add_argument("--inputs", dest="input_wav_paths", type=str, nargs="+", required=True,
                    help="WAV files to analyse (shell globs expand naturally).")
@@ -175,10 +180,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Directory for the bundle view + reports (created).")
     p.add_argument("--reports-subdir", dest="reports_subdir", type=str, default="reports")
     p.add_argument("--resume", action="store_true",
-                   help="Skip files whose plot report already exists (not yet ported).")
+                   help="Skip files whose plot report already exists.")
     p.add_argument("--mono", dest="use_mono_downmix", action="store_true")
     p.add_argument("--no-plots", dest="no_plots", action="store_true",
-                   help="Engine fast path: text/JSON metric reports only (required).")
+                   help="Engine fast path: text/JSON metric reports only.")
     p.add_argument("--bands", dest="band_mode", type=str, default="three",
                    choices=["three", "octave", "third"])
     _add_engine_config_flags(p)
@@ -212,7 +217,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-bundles", dest="max_bundles", type=int, default=None,
                    help="Exit after analysing this many bundles (default: run forever).")
     p.add_argument("--plots", dest="watch_plots", action="store_true",
-                   help="Also render the plot report per bundle (not yet ported).")
+                   help="Also render the full plot report per bundle (into "
+                        "<reports-subdir>_plots; host-bound, seconds a tap).")
     p.add_argument("--plot-processes", dest="plot_processes", type=int, default=0)
     _add_device(p)
 
@@ -259,7 +265,7 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--zeros", dest="derive_zeros", action="store_true")
     p.add_argument("--zero-order", dest="zero_order", type=int, default=64)
     p.add_argument("--radius", dest="limit_radius", type=float, default=1.2,
-                   help="Plot radius (figures: not yet ported).")
+                   help="Plot radius.")
     p.add_argument("--ridge", dest="ridge_lambda", type=float, default=0.0)
     _add_device(p)
 
@@ -381,7 +387,8 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--dynamic_range_db", type=float, default=90.0,
                    help="Color scale range below max (default: 90). 0 -> percentiles.")
     p.add_argument("--renderer", type=str, choices=["image", "quadmesh"], default="image",
-                   help="Figure renderer (figures: not yet ported).")
+                   help="image: log-frequency raster (fast, default); quadmesh: the "
+                        "reference's per-bin QuadMesh.")
     _add_device(p)
 
     # --- diffusion ---
@@ -457,9 +464,8 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--ylim_seconds_max", type=float, default=None)
     _add_device(p)
 
-    # --- report (plots + summary: not yet ported) ---
-    p = sub.add_parser("report", help="Run a standard analysis suite; write plots + summary "
-                                      "(not yet ported).")
+    # --- report ---
+    p = sub.add_parser("report", help="Run a standard analysis suite; write plots + summary.")
     _add_input(p)
     p.add_argument("--output", dest="output_basename", type=str, required=True,
                    help="Output basename/prefix (folder + base name).")
@@ -474,7 +480,7 @@ def _add_per_file_parsers(sub) -> None:
     p.add_argument("--timing", dest="include_timing", action="store_true",
                    help="Append a per-block wall-clock table to the report.")
     p.add_argument("--profile-dir", dest="profile_dir", type=str, default=None,
-                   help="Write a profiler trace of the device work to this directory.")
+                   help="Write a torch.profiler Chrome trace of the run to this directory.")
     _add_device(p)
 
 
@@ -515,30 +521,44 @@ FIGURE_COMMANDS = (
 
 
 def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
-    """The first flag (or path) of `cmd` that the port does not have yet.
-    `--plot-processes` is accepted and ignored where the JAX CLI ignores
-    it: on the engine paths, which draw nothing."""
-    if cmd == "report":
-        return "report (the plot report)"
+    """The first flag of `cmd` that the port does not have yet (the
+    multi-host engine). `--plot-processes` is accepted and ignored where
+    the JAX CLI ignores it: on the engine paths, which draw nothing."""
     refused = (
         ("--multi-host", getattr(args, "multi_host", False)),
         ("--coordinator", getattr(args, "coordinator", None) is not None),
         ("--num-processes", getattr(args, "num_processes", None) is not None),
         ("--process-id", getattr(args, "process_id", None) is not None),
-        ("--tap-shard", getattr(args, "tap_shard", None) is not None),
-        ("--resume", getattr(args, "resume", False)),
-        ("--plots", getattr(args, "watch_plots", False)),
-        ("--output", getattr(args, "output_basename", None) is not None),
     )
     for flag, given in refused:
         if given:
             return flag
-    if cmd in ("bundle", "batch") and not args.no_plots:
-        return f"{cmd} without --no-plots (the plot reports)"
-    if cmd in FIGURE_COMMANDS and not args.no_show:
-        flag = "--no-show" if cmd in ("groupdelay", "zplane") else "--no_show"
-        return f"{cmd} without {flag} (the figures)"
     return None
+
+
+def _draws_figures(cmd: str, args: argparse.Namespace) -> bool:
+    if cmd == "report":
+        return True
+    if cmd in ("bundle", "batch"):
+        return not bool(args.no_plots)
+    if cmd == "watch":
+        return bool(args.watch_plots)
+    if cmd in FIGURE_COMMANDS:
+        return args.output_basename is not None or not bool(args.no_show)
+    return False
+
+
+def _require_matplotlib(cmd: str) -> None:
+    """Exit before any work when the figures asked for cannot be drawn: a
+    report is never written without its PNGs."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        raise SystemExit(
+            f"analyse {cmd}: drawing the figures needs matplotlib, which does not import here "
+            f"({exc}); the metrics alone run with --no-plots (bundle, batch), without --plots "
+            "(watch), or with --no_show / --no-show and no --output (the per-file commands)"
+        ) from None
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -567,9 +587,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             f"analyse {cmd}: CUDA is not available; pass --device cpu to run the "
             "plain torch versions on the host"
         )
+    if _draws_figures(cmd, args):
+        _require_matplotlib(cmd)
 
     if cmd == "deconvolve" or cmd in FIGURE_COMMANDS:
         _run_per_file(cmd, args, device)
+        return
+    if cmd == "report":
+        _run_report(args, device)
         return
 
     if cmd == "watch":
@@ -581,6 +606,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             compare_to_previous=not bool(args.no_compare),
             compare_threshold_pct=float(args.compare_threshold),
             max_bundles=args.max_bundles,
+            plots=bool(args.watch_plots),
+            plot_processes=int(args.plot_processes),
         )
         try:
             watch_bundle_runs(str(args.watch_root), watch_settings, device=device)
@@ -598,6 +625,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             raise SystemExit(str(exc)) from None
         print(f"Materialised bundle view: {root} ({len(args.input_wav_paths)} files)")
 
+    if not args.no_plots:
+        _run_plot_bundle(args, device)
+        return
     index = run_bundle_report_engine(
         str(args.bundle_root),
         _engine_settings(
@@ -613,6 +643,63 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit(3)
 
 
+def _run_report(args: argparse.Namespace, device: torch.device) -> None:
+    from pathlib import Path
+
+    from audio_analysis_tpu_torch.report.report import ReportSettings, run_report_from_wav_file
+    from audio_analysis_tpu_torch.utils.timing import profile_trace
+
+    with profile_trace(args.profile_dir):
+        results = run_report_from_wav_file(
+            input_wav_file_path=str(args.input_wav_file_path),
+            output_basename=str(Path(args.output_basename)),
+            settings=ReportSettings(
+                common_use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                common_trim_to_peak=bool(args.trim_to_peak),
+                common_ignore_leading_seconds=float(args.ignore_leading_seconds),
+                run_impulse_response_plots=bool(args.run_ir),
+                run_decay=bool(args.run_decay),
+                run_rt60_bands=bool(args.run_rt60bands),
+                run_frequency_response=bool(args.run_fr),
+                run_group_delay=bool(args.run_gd),
+                run_spectrogram=bool(args.run_spectrogram),
+                run_waterfall=bool(args.run_waterfall),
+                run_diffusion=bool(args.run_diffusion),
+                run_modal_cloud=bool(args.run_modalcloud),
+                run_echo_density=bool(args.run_echodensity),
+                include_timing_footer=bool(args.include_timing),
+            ),
+            device=device,
+        )
+    print(results.summary_markdown)
+    print(f"Wrote: {results.summary_markdown_path}")
+
+
+def _run_plot_bundle(args: argparse.Namespace, device: torch.device) -> None:
+    """`bundle` / `batch` without --no-plots: one full report per tap."""
+    from audio_analysis_tpu_torch.report.bundle import BundleRunSettings, run_bundle_report
+    from audio_analysis_tpu_torch.report.report import ReportSettings
+
+    index = run_bundle_report(
+        str(args.bundle_root),
+        settings=BundleRunSettings(
+            reports_subdir=str(args.reports_subdir),
+            resume=bool(args.resume),
+            tap_shard=getattr(args, "tap_shard", None),
+            report_settings=ReportSettings(
+                common_use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+                plot_processes=int(args.plot_processes),
+            ),
+        ),
+        device=device,
+    )
+    if getattr(args, "tap_shard", None):
+        print(f"Wrote bundle shard summary: {index}")
+        print(f"Merge after all shards finish: analyse.cli bundle --input {args.bundle_root} --resume")
+    else:
+        print(f"Wrote bundle report index: {index}")
+
+
 def _maybe_write_json(args: argparse.Namespace, results) -> None:
     if args.json_path:
         from audio_analysis_tpu_torch.utils import write_results_json
@@ -621,8 +708,9 @@ def _maybe_write_json(args: argparse.Namespace, results) -> None:
 
 
 def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> None:
-    """One per-file subcommand: the analysis on `device`, then the JAX
-    CLI's stdout (the JSON line first, then the summary)."""
+    """One per-file subcommand: the analysis on `device`, its figures when
+    asked for (--output, or a run without --no_show / --no-show), then the
+    JAX CLI's stdout (the JSON line first, then the summary)."""
     from audio_analysis_tpu_torch import analyses as an
 
     path = str(getattr(args, "input_wav_file_path", ""))
@@ -649,19 +737,24 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
         print(f"  length_seconds={result.samples.shape[0] / float(result.sample_rate_hz):.3f}")
         return
 
+    figures = _draws_figures(cmd, args)
+    out = args.output_basename
+    show = not bool(args.no_show)
     if cmd == "ir":
         # host only, as in the JAX package; prints nothing but the JSON line
-        results = an.impulse_response.analyse_ir_from_wav_file(
-            path,
-            an.impulse_response.ImpulseResponseViewSettings(
-                early_window_seconds=float(args.early_window_seconds),
-                log_magnitude_floor_db=float(args.log_magnitude_floor_db),
-                use_mono_downmix=bool(args.use_mono_downmix),
-            ),
+        settings = an.impulse_response.ImpulseResponseViewSettings(
+            early_window_seconds=float(args.early_window_seconds),
+            log_magnitude_floor_db=float(args.log_magnitude_floor_db),
+            use_mono_downmix=bool(args.use_mono_downmix),
         )
+        if figures:
+            results = an.impulse_response.plot_ir_from_wav_file(path, settings, out, show)
+        else:
+            results = an.impulse_response.analyse_ir_from_wav_file(path, settings)
         _maybe_write_json(args, results)
         return
 
+    # each branch: the results, their summary, and the figures' renderer
     if cmd in ("decay", "rt60bands"):
         edt = bool(args.compute_edt) if cmd == "decay" else bool(args.include_edt)
         decay_settings = an.decay.DecayAnalysisSettings(
@@ -676,6 +769,7 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
         if cmd == "decay":
             results = an.decay.analyse_decay_from_wav_file(path, decay_settings, device=device)
             text = an.decay.summarise_decay_results_text(results)
+            render = partial(an.decay.render_decay_plots, results, decay_settings, an.decay.DecayPlotSettings())
         else:
             settings = an.rt60bands.Rt60BandsAnalysisSettings(
                 band_mode=str(args.band_mode),
@@ -694,97 +788,107 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
             text = an.rt60bands.summarise_rt60_bands_results_text(
                 results, include_t20=settings.include_t20, include_edt=settings.include_edt
             )
+            legend_values = (
+                str(args.band_mode) == "three" if args.legend_values is None else bool(args.legend_values)
+            )
+            render = partial(
+                an.rt60bands.render_rt60_bands_plots, results, settings,
+                an.rt60bands.Rt60BandsPlotSettings(legend_values=legend_values),
+            )
     elif cmd == "fr":
-        results = an.frequency_response.analyse_frequency_response_from_wav_file(
-            path,
-            an.frequency_response.FrequencyResponseAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                use_hann_window=not bool(args.no_hann_window),
-                magnitude_floor_db=float(args.magnitude_floor_db),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                smoothing_log_bins=int(args.smoothing_log_bins),
-                log_bins_per_octave=int(args.log_bins_per_octave),
-                exact_grid=bool(args.exact_grid),
-            ),
-            device=device,
+        settings = an.frequency_response.FrequencyResponseAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            use_hann_window=not bool(args.no_hann_window),
+            magnitude_floor_db=float(args.magnitude_floor_db),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            smoothing_log_bins=int(args.smoothing_log_bins),
+            log_bins_per_octave=int(args.log_bins_per_octave),
+            exact_grid=bool(args.exact_grid),
         )
+        results = an.frequency_response.analyse_frequency_response_from_wav_file(path, settings, device=device)
         text = an.frequency_response.summarise_frequency_response_results_text(results)
+        render = partial(
+            an.frequency_response.render_frequency_response_plots, results, settings,
+            an.frequency_response.FrequencyResponsePlotSettings(),
+        )
     elif cmd == "filter":
-        results = an.filterplot.analyse_filter_response_from_wav_file(
-            path,
-            an.filterplot.FilterAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                use_hann_window=not bool(args.no_hann_window),
-                magnitude_floor_db=float(args.magnitude_floor_db),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                phase_mode=str(args.phase_mode),
-                unwrap_phase=not bool(args.no_unwrap_phase),
-                exact_grid=bool(args.exact_grid),
-            ),
-            device=device,
+        settings = an.filterplot.FilterAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            use_hann_window=not bool(args.no_hann_window),
+            magnitude_floor_db=float(args.magnitude_floor_db),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            phase_mode=str(args.phase_mode),
+            unwrap_phase=not bool(args.no_unwrap_phase),
+            exact_grid=bool(args.exact_grid),
         )
+        results = an.filterplot.analyse_filter_response_from_wav_file(path, settings, device=device)
         text = an.filterplot.summarise_filter_response_results_text(results)
+        render = partial(
+            an.filterplot.render_filter_response_plots, results, settings, an.filterplot.FilterPlotSettings()
+        )
     elif cmd == "zplane":
-        results = an.zplane.analyse_zplane_from_wav_file(
-            path,
-            an.zplane.ZPlaneAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                ar_order=int(args.ar_order),
-                derive_zeros=bool(args.derive_zeros),
-                zero_order=int(args.zero_order),
-                ridge_lambda=float(args.ridge_lambda),
-            ),
-            device=device,
+        settings = an.zplane.ZPlaneAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            ar_order=int(args.ar_order),
+            derive_zeros=bool(args.derive_zeros),
+            zero_order=int(args.zero_order),
+            ridge_lambda=float(args.ridge_lambda),
         )
+        results = an.zplane.analyse_zplane_from_wav_file(path, settings, device=device)
         text = an.zplane.summarise_zplane_results_text(results)
+        plot_settings = an.zplane.ZPlanePlotSettings(limit_radius=float(args.limit_radius))
+
+        def render(out, show, _title_source):
+            an.zplane.render_zplane_plots(results, settings, plot_settings, out, show)
     elif cmd == "groupdelay":
-        results = an.group_delay.analyse_group_delay_from_wav_file(
-            path,
-            an.group_delay.GroupDelayAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                fft_size=args.fft_size,
-                smoothing_bins=int(args.smoothing_bins),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                exact_grid=bool(args.exact_grid),
-            ),
-            device=device,
+        settings = an.group_delay.GroupDelayAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix_for_stereo),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            fft_size=args.fft_size,
+            smoothing_bins=int(args.smoothing_bins),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            exact_grid=bool(args.exact_grid),
         )
+        results = an.group_delay.analyse_group_delay_from_wav_file(path, settings, device=device)
         text = an.group_delay.summarise_group_delay_results_text(results)
+
+        def render(out, show, _title_source):
+            an.group_delay.render_group_delay_plots(results, an.group_delay.GroupDelayPlotSettings(), out, show)
     elif cmd == "spectrogram":
         dyn = float(args.dynamic_range_db)
-        results = an.spectrogram.analyse_spectrogram_from_wav_file(
-            path,
-            an.spectrogram.SpectrogramAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                n_fft=int(args.n_fft),
-                hop_length=int(args.hop_length),
-                use_hann_window=not bool(args.no_hann_window),
-                floor_db=float(args.floor_db),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                dynamic_range_db=None if dyn <= 0.0 else dyn,
-            ),
-            device=device,
+        settings = an.spectrogram.SpectrogramAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            n_fft=int(args.n_fft),
+            hop_length=int(args.hop_length),
+            use_hann_window=not bool(args.no_hann_window),
+            floor_db=float(args.floor_db),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            dynamic_range_db=None if dyn <= 0.0 else dyn,
         )
+        results = an.spectrogram.analyse_spectrogram_from_wav_file(path, settings, device=device)
         text = an.spectrogram.summarise_spectrogram_results_text(results)
+        render = partial(
+            an.spectrogram.render_spectrogram_plots, results, settings,
+            an.spectrogram.SpectrogramPlotSettings(renderer=str(args.renderer)),
+        )
     elif cmd == "diffusion":
         results = an.diffusion.analyse_diffusion_from_wav_file(
             path,
@@ -801,57 +905,74 @@ def _run_per_file(cmd: str, args: argparse.Namespace, device: torch.device) -> N
             device=device,
         )
         text = an.diffusion.summarise_diffusion_results_text(results)
+        render = partial(an.diffusion.render_diffusion_plots, results)
     elif cmd == "waterfall":
-        results = an.waterfall.analyse_waterfall_from_wav_file(
-            path,
-            an.waterfall.WaterfallAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                n_fft=int(args.n_fft),
-                hop_length=int(args.hop_length),
-                use_hann_window=not bool(args.no_hann_window),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                slice_mode=str(args.slice_mode),
-                num_slices=int(args.num_slices),
-                slice_spacing_seconds=float(args.slice_spacing_seconds),
-                start_time_seconds=float(args.start_time_seconds),
-                end_time_seconds=args.end_time_seconds,
-                db_reference=str(args.db_reference),
-                smoothing_log_bins=int(args.smoothing_log_bins),
-                log_bins_per_octave=int(args.log_bins_per_octave),
-                dynamic_range_db=float(args.dynamic_range_db),
-                floor_db=float(args.floor_db),
-            ),
-            device=device,
+        settings = an.waterfall.WaterfallAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            n_fft=int(args.n_fft),
+            hop_length=int(args.hop_length),
+            use_hann_window=not bool(args.no_hann_window),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            slice_mode=str(args.slice_mode),
+            num_slices=int(args.num_slices),
+            slice_spacing_seconds=float(args.slice_spacing_seconds),
+            start_time_seconds=float(args.start_time_seconds),
+            end_time_seconds=args.end_time_seconds,
+            db_reference=str(args.db_reference),
+            smoothing_log_bins=int(args.smoothing_log_bins),
+            log_bins_per_octave=int(args.log_bins_per_octave),
+            dynamic_range_db=float(args.dynamic_range_db),
+            floor_db=float(args.floor_db),
         )
+        results = an.waterfall.analyse_waterfall_from_wav_file(path, settings, device=device)
         text = an.waterfall.summarise_waterfall_results_text(results)
-    else:  # modalcloud
-        results = an.modalcloud.analyse_modal_cloud_from_wav_file(
-            path,
-            an.modalcloud.ModalCloudAnalysisSettings(
-                use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
-                trim_to_peak=bool(args.trim_to_peak),
-                ignore_leading_seconds=float(args.ignore_leading_seconds),
-                analysis_duration_seconds=args.analysis_duration_seconds,
-                n_fft=int(args.n_fft),
-                hop_length=int(args.hop_length),
-                use_hann_window=not bool(args.no_hann_window),
-                f_min_hz=float(args.f_min_hz),
-                f_max_hz=float(args.f_max_hz),
-                log_bins_per_octave=int(args.log_bins_per_octave),
-                min_bins=int(args.min_bins),
-                metric=str(args.metric),
-                fit_lower_limit_db=float(args.fit_lower_limit_db),
-                min_fit_points=int(args.min_fit_points),
-                min_peak_db_above_floor=float(args.min_peak_db_above_floor),
-                floor_db=float(args.floor_db),
+        render = partial(
+            an.waterfall.render_waterfall_plots, results, settings,
+            an.waterfall.WaterfallPlotSettings(
+                style=str(args.style),
+                elev_deg=float(args.elev_deg),
+                azim_deg=float(args.azim_deg),
+                ridge_offset_db=float(args.ridge_offset_db),
             ),
-            device=device,
         )
+    else:  # modalcloud
+        settings = an.modalcloud.ModalCloudAnalysisSettings(
+            use_mono_downmix_for_stereo=bool(args.use_mono_downmix),
+            trim_to_peak=bool(args.trim_to_peak),
+            ignore_leading_seconds=float(args.ignore_leading_seconds),
+            analysis_duration_seconds=args.analysis_duration_seconds,
+            n_fft=int(args.n_fft),
+            hop_length=int(args.hop_length),
+            use_hann_window=not bool(args.no_hann_window),
+            f_min_hz=float(args.f_min_hz),
+            f_max_hz=float(args.f_max_hz),
+            log_bins_per_octave=int(args.log_bins_per_octave),
+            min_bins=int(args.min_bins),
+            metric=str(args.metric),
+            fit_lower_limit_db=float(args.fit_lower_limit_db),
+            min_fit_points=int(args.min_fit_points),
+            min_peak_db_above_floor=float(args.min_peak_db_above_floor),
+            floor_db=float(args.floor_db),
+        )
+        results = an.modalcloud.analyse_modal_cloud_from_wav_file(path, settings, device=device)
         text = an.modalcloud.summarise_modal_cloud_results_text(results)
+        ylim = None
+        if args.ylim_seconds_min is not None and args.ylim_seconds_max is not None:
+            ylim = (float(args.ylim_seconds_min), float(args.ylim_seconds_max))
+        render = partial(
+            an.modalcloud.render_modal_cloud_plots, results, settings,
+            an.modalcloud.ModalCloudPlotSettings(
+                show_median_curve=bool(args.show_median_curve),
+                median_octave_window=float(args.median_octave_window),
+                ylim_seconds=ylim,
+            ),
+        )
+    if figures:
+        render(out, show, path)
     _maybe_write_json(args, results)
     print(text)
 

@@ -13,8 +13,11 @@ bundles were analysed, the last metrics path, failures) persists in
 appends one JSON line to `<root>/watch_log.jsonl`.
 
 A directory whose root itself is a bundle (meta.json at top level) is
-watched for in-place re-recordings (mtime changes). The plot reports
-(`plots=True`) are not yet ported.
+watched for in-place re-recordings (mtime changes). With `plots=True` each
+analysed bundle also gets the plot reports (report.bundle) in
+`<reports_subdir>_plots`; a re-recorded bundle redraws only the taps whose
+WAV changed since the last successful render (per-tap signatures in the
+state file, keyed on the settings that change the figures).
 """
 
 from __future__ import annotations
@@ -66,17 +69,27 @@ class WatchSettings:
     # a failing bundle is retried this many times on later polls (IO
     # hiccups are transient) before being given up on
     max_failures_per_bundle: int = 3
-    # the full plot report per bundle: not yet ported (refused)
+    # also the full plot report per bundle (host-bound, seconds a tap; the
+    # engine metrics and the diff stay the service output)
     plots: bool = False
+    plot_processes: int = 0
+
+
+def _tap_signatures(bundle: Path, meta: dict) -> Dict[str, str]:
+    """Per-tap content identity ((size, mtime) of the tap WAV): the unit of
+    figure reuse, as an unchanged tap's figures need no redraw."""
+    sigs: Dict[str, str] = {}
+    for tap in meta.get("taps", []):
+        st = (bundle / "taps" / f"{tap}.wav").stat()
+        sigs[tap] = f"{st.st_size}:{st.st_mtime_ns}"
+    return sigs
 
 
 def _bundle_signature(bundle: Path, meta: dict) -> str:
     """Identity of a bundle's content: meta mtime + per-tap (size, mtime).
     A re-recorded bundle (same dir, new audio) gets a new signature."""
     parts = [str(int(bundle.joinpath("meta.json").stat().st_mtime_ns))]
-    for tap in meta.get("taps", []):
-        st = (bundle / "taps" / f"{tap}.wav").stat()
-        parts.append(f"{tap}:{st.st_size}:{st.st_mtime_ns}")
+    parts.extend(f"{tap}:{sig}" for tap, sig in _tap_signatures(bundle, meta).items())
     return "|".join(parts)
 
 
@@ -115,10 +128,18 @@ def _save_state(root: Path, state: dict) -> None:
     (root / _STATE_NAME).write_text(json.dumps(state, indent=1) + "\n")
 
 
-def _append_event_log(root: Path, bundle: Path, meta: dict, index: Path, flagged_changes: int) -> None:
+def _append_event_log(
+    root: Path,
+    bundle: Path,
+    meta: dict,
+    index: Path,
+    flagged_changes: int,
+    plot_counts: Optional[dict] = None,
+) -> None:
     """One JSON line per analysed bundle in <root>/watch_log.jsonl: what
-    ran, how long, what moved, and how many audio chunks the device cache
-    served. Best-effort: a log write must never kill the watcher."""
+    ran, how long, what moved, how many audio chunks the device cache
+    served, and with plots how many taps were drawn and reused.
+    Best-effort: a log write must never kill the watcher."""
     event = {
         "ts": time.time(),
         "bundle": bundle.name,
@@ -126,6 +147,8 @@ def _append_event_log(root: Path, bundle: Path, meta: dict, index: Path, flagged
         "index": str(index),
         "flagged_changes": flagged_changes,
     }
+    if plot_counts is not None:
+        event.update(plot_counts)
     try:
         with open("/proc/self/status") as fh:
             event["rss_mb"] = round(int(fh.read().split("VmRSS:")[1].split()[0]) / 1024, 1)
@@ -149,6 +172,46 @@ def _append_event_log(root: Path, bundle: Path, meta: dict, index: Path, flagged
         pass
 
 
+def _render_plots(
+    bundle: Path,
+    settings: WatchSettings,
+    tap_sigs: Dict[str, str],
+    previous_sigs: Optional[dict],
+    first_render: bool,
+    device: "str | torch.device",
+) -> dict:
+    """The plot reports of one bundle into `<reports_subdir>_plots`: every
+    tap the first time (a resume recovers a partial first render), after
+    that only the taps whose WAV changed, and any tap whose PNG set is
+    incomplete. Returns the rendered and reused tap counts."""
+    from audio_analysis_tpu_torch.report.bundle import BundleRunSettings, _report_complete, run_bundle_report
+    from audio_analysis_tpu_torch.report.report import ReportSettings
+
+    subdir = f"{settings.engine.reports_subdir}_plots"
+    render_only = (
+        None if previous_sigs is None else tuple(t for t, sig in tap_sigs.items() if previous_sigs.get(t) != sig)
+    )
+    complete_before = {t: _report_complete(bundle / subdir / t / f"{t}_report.md") for t in tap_sigs}
+    run_bundle_report(
+        bundle,
+        BundleRunSettings(
+            reports_subdir=subdir,
+            resume=first_render,
+            render_only_taps=render_only,
+            report_settings=ReportSettings(
+                plot_processes=settings.plot_processes,
+                common_use_mono_downmix_for_stereo=settings.engine.use_mono_downmix_for_stereo,
+            ),
+        ),
+        device,
+    )
+    if render_only is None:
+        rendered = len(tap_sigs)
+    else:
+        rendered = sum(1 for t in tap_sigs if t in render_only or not complete_before[t])
+    return {"figures_rendered_taps": rendered, "figures_skipped_taps": len(tap_sigs) - rendered}
+
+
 def watch_bundle_runs(
     watch_root: str | Path,
     settings: Optional[WatchSettings] = None,
@@ -163,8 +226,6 @@ def watch_bundle_runs(
     """
     if settings is None:
         settings = WatchSettings()
-    if settings.plots:
-        raise NotImplementedError("watch plots (the plot reports) are not yet ported")
     root = Path(watch_root)
     if not root.is_dir():
         raise ValueError(f"watch root {root} is not a directory")
@@ -172,14 +233,28 @@ def watch_bundle_runs(
     state = _load_state(root)
     analyzed: Dict[str, str] = dict(state.get("analyzed", {}))
     failures: Dict[str, dict] = dict(state.get("failures", {}))
+    # per-tap WAV signatures of each bundle's last successful figure
+    # render, valid only for the settings that change the figures' content
+    # (plot_processes changes where they are drawn, not what)
+    plot_settings_fp = repr(("mono", settings.engine.use_mono_downmix_for_stereo))
+    plot_sigs: Dict[str, dict] = (
+        dict(state.get("plot_sigs", {})) if state.get("plot_sigs_settings") == plot_settings_fp else {}
+    )
     last_metrics: Optional[str] = state.get("last_metrics")
     written: List[Path] = []
 
     def save_state() -> None:
-        # every other key (the JAX watcher's plot_sigs / plot_sigs_settings
-        # figure-skip cache) is written back unchanged
+        # any other key of the state file is written back unchanged
         _save_state(
-            root, {**state, "analyzed": analyzed, "failures": failures, "last_metrics": last_metrics}
+            root,
+            {
+                **state,
+                "analyzed": analyzed,
+                "failures": failures,
+                "last_metrics": last_metrics,
+                "plot_sigs": plot_sigs,
+                "plot_sigs_settings": plot_settings_fp,
+            },
         )
 
     log(f"watching {root} (poll {settings.poll_seconds:g}s; Ctrl-C to stop)")
@@ -234,6 +309,32 @@ def watch_bundle_runs(
                 )
                 save_state()
                 continue
+            plot_counts = None
+            if settings.plots:
+                try:
+                    tap_sigs = _tap_signatures(bundle, meta)
+                except OSError:
+                    continue  # the recorder replaced a tap mid-poll; retry
+                try:
+                    plot_counts = _render_plots(bundle, settings, tap_sigs, plot_sigs.get(str(bundle)),
+                                                str(bundle) not in analyzed, device)
+                    plot_sigs[str(bundle)] = tap_sigs
+                except Exception as exc:  # noqa: BLE001 — the engine's retry budget
+                    # the bundle stays un-analysed, so a transient plot
+                    # failure is retried next poll
+                    count = (past.get("count", 0) if past.get("signature") == signature else 0) + 1
+                    failures[str(bundle)] = {"signature": signature, "count": count}
+                    gave_up = count >= settings.max_failures_per_bundle
+                    log(
+                        f"plot report FAILED for {bundle.name} (attempt {count}/"
+                        f"{settings.max_failures_per_bundle}"
+                        f"{', keeping the metrics-only result' if gave_up else ', will retry'}): "
+                        f"{type(exc).__name__}: {exc}"
+                    )
+                    save_state()
+                    if not gave_up:
+                        continue
+                    # out of retries: keep the engine analysis (metrics, diff)
 
             written.append(index)
             analyzed[str(bundle)] = signature
@@ -245,7 +346,7 @@ def watch_bundle_runs(
             suffix = f"  ({num_changes} changes vs previous)" if num_changes else ""
             log(f"analysed {bundle.name}: {len(meta.get('taps', []))} taps -> {index}{suffix}")
             _release_free_heap()
-            _append_event_log(root, bundle, meta, index, num_changes)
+            _append_event_log(root, bundle, meta, index, num_changes, plot_counts)
             progressed = True
             if settings.max_bundles is not None and len(written) >= settings.max_bundles:
                 return written

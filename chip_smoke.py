@@ -87,11 +87,28 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `karplus_pluck --freq 110` / `--freq 4000` on the card against
      `--device cpu` (WAV files identical but for 1 LSB in Karplus-Strong),
      with the Karplus-Strong device time under torch.profiler.
+ 10. the plot reports (outputs under build/chip_smoke_plots/): the tap's
+     report in process with its render jobs recorded, not drawn (K1 and
+     K2 launched 2 and 2, exactly), cold, warm, under torch.profiler and
+     with the plain versions swapped in, every render job's arrays within
+     tests/_render_jobs.py's per-module tolerances of the plain run's and
+     the markdown agreeing; the golden IR's report against
+     tests/golden/verb_report_golden.md (golden_utils.compare_reports);
+     the spectrogram's display pooling alone on the report's plane (time,
+     bound, peak memory, profile, the image equal to the CPU's); the plot
+     bundle runner over a 4-tap view with its jobs recorded (8 and 8).
+     Where matplotlib imports: `report` through the CLI entry (cold, warm,
+     plain, profiled; 15 PNGs, the ones the markdown embeds), the plot
+     `bundle` with the render thread and with `--plot-processes 2` (8 and
+     8 launches, each tap's PNGs, plot_timings.json), `--resume` (every
+     tap cached, 0 launches) and `watch --plots` (10 and 10). Where it does
+     not: `report`, the plot `bundle` and `watch --plots` must exit naming
+     matplotlib before any work.
 
-The port's path must not load jax, matplotlib or the JAX package
-(audio_analysis_tpu). The last lines are the per-file JSON, the phase-9
-(`per_file_rest`) JSON, the kernels' JSON, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
+package (audio_analysis_tpu). The last lines are the per-file JSON, the
+phase-9 (`per_file_rest`) JSON, the phase-10 (`plots`) JSON, the kernels'
+JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
 There is no CPU fallback: without CUDA the script exits non-zero at once.
 """
 
@@ -1117,6 +1134,259 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
     return results
 
 
+def embedded_images(md_path: Path) -> set:
+    """The PNG names a report's markdown embeds."""
+    return set(re.findall(r"!\[[^\]]*\]\(([^)]+)\)", md_path.read_text()))
+
+
+def check_tap_pngs(reports: Path, taps) -> None:
+    """Every tap's PNG files are exactly the ones its markdown embeds."""
+    for tap in taps:
+        folder = reports / tap
+        pngs = {q.name for q in folder.glob("*.png")}
+        if not pngs or pngs != embedded_images(folder / f"{tap}_report.md"):
+            raise AssertionError(f"{reports.name}/{tap}: PNGs {sorted(pngs)} against the markdown's images")
+
+
+def pooled_image_check(torch, tap: Path, dev) -> dict:
+    """ops.display.pooled_log_freq_image alone on the report's plane (the
+    tap's 4096-point dB STFT, (2, 2041, 2049)): CUDA-event time, peak
+    memory, the image against the one computed from the same plane on the
+    CPU, its bound (the selected bins read once and the int16 image
+    written once at 3.35 TB/s), and one call under torch.profiler (device
+    busy time and the largest device items)."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch.analyses._common import FileDsp
+    from audio_analysis_tpu_torch.ops import display
+    from audio_analysis_tpu_torch.ops import stft as stft_ops
+
+    dsp = FileDsp.from_wav_file(tap, False, dev)
+    _, seg_lens = dsp.aligned_host_meta(True, 0.0, None)
+    plane = dsp.stft_db(True, 0.0, None, 4096, 512, True, -120.0).mag_db
+    frames = np.array([stft_ops.num_frames_static(int(n), 4096, 512) for n in seg_lens], np.int64)
+    args = (frames, 4096, SR, 20.0, 20_000.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    images, p995, p5 = display.pooled_log_freq_image(plane, *args)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    ms = time_ms(lambda: display.pooled_log_freq_image(plane, *args))
+    ref_images, ref_p995, ref_p5 = display.pooled_log_freq_image(plane.cpu(), *args)
+    if not all(np.array_equal(a, b) for a, b in zip(images, ref_images)):
+        raise AssertionError("pooled display image: card and CPU differ")
+    if not (np.abs(p995 - ref_p995).max() <= 1 / 128 and np.abs(p5 - ref_p5).max() <= 1 / 128):
+        raise AssertionError(f"pooled display percentiles: card {p995} {p5}, CPU {ref_p995} {ref_p5}")
+    i0, i1 = display.freq_selection(4096, SR, 20.0, 20_000.0)
+    read = plane.shape[0] * plane.shape[1] * (i1 - i0) * 4
+    written = sum(im.size for im in images) * 2
+    b, by = bound(read + written, 0.0)
+    busy = device_busy(torch, lambda: display.pooled_log_freq_image(plane, *args))
+    out = {"plane": list(plane.shape), "image": [list(im.shape) for im in images], "ms": ms, "bound_ms": b,
+           "bound_by": by, "bound_share": b / ms, "peak_gib": peak, "p995_db": p995.tolist(), "p5_db": p5.tolist(),
+           "profiled": busy}
+    log(f"pooled display image {tuple(plane.shape)} -> {[im.shape for im in images]}: {ms:.3f} ms, bound "
+        f"{b * 1e3:.1f} us ({by}), {b / ms:.2%} of bound; peak {peak:.3f} GiB; card == CPU")
+    log(f"  under the profiler: {busy}")
+    return out
+
+
+def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dict) -> dict:
+    """Phase 10: the plot reports. The report suite in process with its
+    render jobs recorded (kernels against plain versions), the golden IR's
+    report against tests/golden/verb_report_golden.md, the display pooling
+    alone, and the plot bundle runner over a 4-tap view with its jobs
+    recorded; where matplotlib imports, `report` and the plot `bundle`
+    through the CLI entry with their PNGs, else `report` must exit naming
+    matplotlib."""
+    import contextlib
+    import io
+    import shutil
+
+    import golden_utils
+    from _render_jobs import RecordingPlotWorker, compare_jobs
+
+    from audio_analysis_tpu_torch.io import materialize_bundle_view
+    from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
+    from audio_analysis_tpu_torch.ops import edc, stft
+    from audio_analysis_tpu_torch.report import bundle as bundle_module
+    from audio_analysis_tpu_torch.report.report import ReportSettings, run_report_from_wav_file
+
+    try:
+        import matplotlib
+
+        mpl = matplotlib.__version__
+    except ImportError:
+        mpl = None
+    out = {"matplotlib": mpl}
+    log(f"plots: matplotlib {mpl}")
+    out_dir = REPO / "build" / "chip_smoke_plots"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    tap = root / "taps" / "tap00.wav"
+    names = [f"tap{i:02d}" for i in range(4)]
+    view = materialize_bundle_view([str(root / "taps" / f"{t}.wav") for t in names], out_dir / "bundle4")
+    plain_kernels = (mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain),
+                     mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain))
+
+    def recorded(base: Path, wav: Path = tap):
+        jobs = RecordingPlotWorker()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_report_from_wav_file(wav, base, ReportSettings(), jobs, dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, result, jobs
+
+    # 10.1 the report in process, figures recorded: K1 and K2 twice each,
+    # the kernel run against the plain run
+    torch.cuda.reset_peak_memory_stats(dev)
+    (cold, kernel_md, kernel_jobs), launches = read_launches(counters, lambda: recorded(out_dir / "rec_k" / "tap00"))
+    if (launches["edc"], launches["stft"]) != (2, 2):
+        raise AssertionError(f"report (figures recorded): launches {launches}, expected K1 2, K2 2")
+    launches_by_path["report (figures recorded)"] = launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    warm = [recorded(out_dir / "rec_k" / "tap00")[0] for _ in range(3)]
+    busy = device_busy(torch, lambda: recorded(out_dir / "rec_k" / "tap00"))
+    with plain_kernels[0], plain_kernels[1]:
+        plain, plain_md, plain_jobs = recorded(out_dir / "rec_p" / "tap00")
+    worst = compare_jobs(plain_jobs.jobs, kernel_jobs.jobs)
+    compare_markdown(kernel_md.summary_markdown, plain_md.summary_markdown.replace("rec_p", "rec_k"), "report")
+    out["report_recorded"] = {"cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
+                              "launches": launches, "warm_profiled": busy, "render_jobs_worst_ratio": worst}
+    log(f"report (figures recorded): cold {cold:.3f} s, warm {min(warm):.3f}-{max(warm):.3f} s, plain {plain:.3f} s, "
+        f"peak {peak:.3f} GiB, launches {launches}; {len(kernel_jobs.jobs)} render jobs of the kernel run within "
+        f"tolerance of the plain run's (worst ratio {max(worst.values()):.3g}); markdown agrees")
+    log(f"  warm under the profiler: {busy}")
+
+    # 10.2 the golden IR's report on the card against the golden markdown
+    golden = out_dir / "golden_ir.wav"
+    write_wav_pcm16(golden, golden_utils.make_golden_ir(), SR)
+    _, golden_md, _ = recorded(out_dir / "golden" / "golden", golden)
+    golden_utils.compare_reports(
+        (REPO / "tests" / "golden" / "verb_report_golden.md").read_text(), golden_md.summary_markdown
+    )
+    log("report: the golden IR's report on the card agrees with tests/golden/verb_report_golden.md")
+
+    # 10.3 the display pooling alone
+    out["pooled_image"] = pooled_image_check(torch, tap, dev)
+
+    # 10.4 the plot bundle runner over 4 taps, figures recorded: 2 and 2
+    # launches a tap
+    with mock.patch.object(bundle_module, "make_plot_worker", lambda *a: RecordingPlotWorker()):
+        t0 = time.perf_counter()
+        _, launches = read_launches(counters, lambda: bundle_module.run_bundle_report(
+            view, bundle_module.BundleRunSettings(reports_subdir="reports_recorded"), dev))
+        recorded_s = time.perf_counter() - t0
+    if (launches["edc"], launches["stft"]) != (8, 8):
+        raise AssertionError(f"plot bundle (figures recorded): launches {launches}, expected 8 and 8")
+    launches_by_path["plot bundle (figures recorded)"] = launches
+    out["bundle_recorded_s"] = recorded_s
+    log(f"plot bundle of 4 taps (figures recorded): {recorded_s:.3f} s, launches {launches}")
+
+    if mpl is None:
+        log("plots: matplotlib does not import on this host; no PNG is drawn, and `report`, the plot "
+            "`bundle` and `watch --plots` must exit naming it")
+        for argv in (["report", "--input", str(tap), "--output", str(out_dir / "cli" / "tap00")],
+                     ["bundle", "--input", str(view), "--reports-subdir", "reports_cli"],
+                     ["watch", "--input", str(view), "--plots", "--max-bundles", "1"]):
+            text = io.StringIO()
+            with contextlib.redirect_stderr(text), contextlib.redirect_stdout(text):
+                try:
+                    cli_main(argv)
+                    code, message = 0, ""
+                except SystemExit as exc:
+                    code, message = exc.code, str(exc.code)
+            if code in (0, None) or "matplotlib" not in message or (out_dir / "cli").exists() \
+                    or (view / "reports_cli").exists() or (view / "reports").exists():
+                raise AssertionError(f"{argv[0]} without matplotlib: exit {code!r}, {message!r}")
+            out[f"{argv[0]}_without_matplotlib"] = message
+        log(f"report, bundle and watch --plots without matplotlib exit: {message}")
+        return out
+
+    # 10.5 `report` through the CLI entry: cold, warm, plain, PNGs
+    def cli_report(name: str):
+        base = out_dir / "cli" / name / "tap00"
+        wall, text = run_cli_text(torch, cli_main, ["report", "--input", str(tap), "--output", str(base)])
+        md = base.parent / "tap00_report.md"
+        if text.splitlines()[-1] != f"Wrote: {md}":
+            raise AssertionError(f"report stdout ends {text.splitlines()[-1]!r}")
+        pngs = {q.name for q in base.parent.glob("*.png")}
+        if len(pngs) != 15 or pngs != embedded_images(md):
+            raise AssertionError(f"report {name}: PNGs {sorted(pngs)}")
+        return wall, md.read_text()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    (cold, kernel_text), launches = read_launches(counters, lambda: cli_report("cold"))
+    if (launches["edc"], launches["stft"]) != (2, 2):
+        raise AssertionError(f"report: launches {launches}, expected K1 2, K2 2")
+    launches_by_path["report"] = launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    warm = [cli_report("warm")[0] for _ in range(2)]
+    busy = device_busy(torch, lambda: cli_report("profiled"))
+    with plain_kernels[0], plain_kernels[1]:
+        plain, plain_text = cli_report("plain")
+    compare_markdown(kernel_text, plain_text.replace("/cli/plain/", "/cli/cold/"), "report CLI")
+    out["report_cli"] = {"cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
+                         "launches": launches, "warm_profiled": busy}
+    log(f"report: cold {cold:.3f} s, warm {min(warm):.3f}-{max(warm):.3f} s, plain {plain:.3f} s, peak {peak:.3f} "
+        f"GiB, launches {launches}; 15 PNGs; kernel run == plain run")
+    log(f"  warm under the profiler: {busy}")
+
+    # 10.6 the plot bundle through the CLI entry: the thread worker, then a
+    # pool of 2 processes, then --resume
+    def cli_bundle(subdir: str, *extra: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(["bundle", "--input", str(view), "--reports-subdir", subdir, *extra])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for label, subdir, extra in (("thread", "reports_thread", ()), ("processes 2", "reports_procs",
+                                                                     ("--plot-processes", "2"))):
+        wall, launches = read_launches(counters, lambda: cli_bundle(subdir, *extra))
+        if (launches["edc"], launches["stft"]) != (8, 8):
+            raise AssertionError(f"plot bundle {label}: launches {launches}, expected 8 and 8")
+        launches_by_path[f"plot bundle ({label})"] = launches
+        check_tap_pngs(view / subdir, names)
+        timings = json.loads((view / subdir / "plot_timings.json").read_text())
+        out[f"bundle_{label.replace(' ', '_')}"] = {"wall_s": wall, "launches": launches, "plot_timings": timings}
+        log(f"plot bundle of 4 taps ({label}): {wall:.3f} s, launches {launches}; render seconds per kind "
+            + json.dumps({k: v["seconds"] for k, v in timings.items()}))
+    for t in names:
+        compare_markdown((view / "reports_thread" / t / f"{t}_report.md").read_text(),
+                         (view / "reports_procs" / t / f"{t}_report.md").read_text(), f"plot bundle {t}")
+    wall, launches = read_launches(counters, lambda: cli_bundle("reports_thread", "--resume"))
+    index = (view / "reports_thread" / "bundle_report.md").read_text()
+    if any(launches.values()) or index.count("(cached)") != len(names):
+        raise AssertionError(f"plot bundle --resume: launches {launches}, index\n{index}")
+    launches_by_path["plot bundle --resume"] = launches
+    out["bundle_resume_s"] = wall
+    log(f"plot bundle --resume: every tap cached, 0 launches, {wall:.3f} s")
+
+    # 10.7 watch --plots over the view: the engine run (one chunk: K1 2,
+    # K2 2) and the plot reports (2 and 2 a tap) into reports_plots
+    t0 = time.perf_counter()
+    _, launches = read_launches(counters, lambda: cli_main(
+        ["watch", "--input", str(view), "--plots", "--max-bundles", "1", "--interval", "0.05"]))
+    wall = time.perf_counter() - t0
+    if (launches["edc"], launches["stft"]) != (10, 10):
+        raise AssertionError(f"watch --plots: launches {launches}, expected 10 and 10")
+    launches_by_path["watch --plots"] = launches
+    check_tap_pngs(view / "reports_plots", names)
+    out["watch_plots_s"] = wall
+    log(f"watch --plots over 4 taps: {wall:.3f} s, launches {launches}")
+    return out
+
+
+def check_modules(reached, banned_roots) -> None:
+    """Every module of `reached` (under audio_analysis_tpu_torch) loaded,
+    and no module under `banned_roots`."""
+    missing = [m for m in reached if "audio_analysis_tpu_torch." + m not in sys.modules]
+    banned = sorted(m for m in sys.modules if m.split(".")[0] in banned_roots)
+    if banned or missing:
+        raise AssertionError(f"the port's path imported {banned}; did not load {missing}")
+
+
 def main() -> int:
     if not (REPO / "audio_analysis_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
@@ -1232,17 +1502,16 @@ def main() -> int:
     phases["per_file_rest_s"] = time.perf_counter() - t0
     phases["launches_by_path"] = launches_by_path
 
-    # every module the paths loaded, the new ones of phase 9 included
-    reached = ("analyses.filterplot", "analyses.zplane", "analyses.impulse_response", "signals.torchgen",
-               "cli.gen_cli")
-    missing = [m for m in reached if "audio_analysis_tpu_torch." + m not in sys.modules]
-    banned = sorted(
-        m for m in sys.modules
-        if m in ("jax", "matplotlib", "audio_analysis_tpu")
-        or m.startswith(("jax.", "matplotlib.", "audio_analysis_tpu."))
-    )
-    if banned or missing:
-        raise AssertionError(f"the port's path imported {banned}; did not load {missing}")
+    # every module the paths loaded, the new ones of phase 9 included; no
+    # path of phases 1-9 loads matplotlib
+    check_modules(("analyses.filterplot", "analyses.zplane", "analyses.impulse_response", "signals.torchgen",
+                   "cli.gen_cli"), ("jax", "matplotlib", "audio_analysis_tpu"))
+
+    # 10. the plot reports
+    t0 = time.perf_counter()
+    plots = plots_phase(torch, cli_main, root, dev, counters, launches_by_path)
+    phases["plots_s"] = time.perf_counter() - t0
+    check_modules(("report.report", "report.bundle", "parallel.overlap"), ("jax", "audio_analysis_tpu"))
     log("phases " + json.dumps(phases))
 
     kernels = [
@@ -1261,6 +1530,7 @@ def main() -> int:
             raise AssertionError(f"non-finite measurement for {k['name']}")
     print(json.dumps({"per_file": per_file}))
     print(json.dumps({"per_file_rest": rest}))
+    print(json.dumps({"plots": plots}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

@@ -119,12 +119,16 @@ def test_bundle_metrics_json_agrees(reports):
 
 def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
     """The bundle path and a per-file subcommand (with every analysis
-    module imported) load neither jax, matplotlib nor the JAX package."""
+    module, the report suite, the plot bundle runner and the plot workers
+    imported) load neither jax, matplotlib nor the JAX package: the figure
+    functions import matplotlib inside themselves."""
     root = _write_bench_bundle(tmp_path / "b", 2, 1 << 14)
     tap = root / "taps" / "tap00.wav"
     code = (
         "import sys\n"
         "import audio_analysis_tpu_torch.analyses\n"
+        "import audio_analysis_tpu_torch.report.bundle, audio_analysis_tpu_torch.report.warmup\n"
+        "import audio_analysis_tpu_torch.parallel.procpool\n"
         "from audio_analysis_tpu_torch.cli.analyse_cli import main\n"
         f"main(['bundle', '--input', {str(root)!r}, '--no-plots', '--device', 'cpu'])\n"
         f"main(['decay', '--input', {str(tap)!r}, '--no_show', '--device', 'cpu'])\n"
@@ -158,22 +162,34 @@ def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
     ],
 )
 def test_cli_refuses_flags_not_yet_ported(argv, flag):
-    """Each flag is refused by name, except `--plot-processes` on the paths
-    that draw nothing (`bundle --no-plots`, `watch` without `--plots`): the
-    JAX CLI ignores it there, so the run is accepted and reaches the
-    engine."""
-    accepted = flag == "--plot-processes"
-    target = "watch_bundle_runs" if argv[0] == "watch" else "run_bundle_report_engine"
-    module = "audio_analysis_tpu_torch.report.watch" if argv[0] == "watch" else (
-        "audio_analysis_tpu_torch.cli.analyse_cli"
-    )
-    with mock.patch(f"{module}.{target}", return_value=Path("index.md")) as engine:
-        if accepted:
+    """--multi-host and its coordinator flags are refused by name. The plot
+    paths that were refused here are ported now: `bundle` / `batch`
+    without --no-plots, with --tap-shard or --resume, reach the plot bundle
+    runner with those settings, and `watch --plots` the watcher with
+    plots on; `--plot-processes` on the paths that draw nothing (`bundle
+    --no-plots`, `watch` without `--plots`) is accepted and ignored, as
+    the JAX CLI does."""
+    refused = flag in ("--multi-host", "--coordinator")
+    if argv[0] == "watch":
+        target = "audio_analysis_tpu_torch.report.watch.watch_bundle_runs"
+    elif "--no-plots" in argv:
+        target = "audio_analysis_tpu_torch.cli.analyse_cli.run_bundle_report_engine"
+    else:
+        target = "audio_analysis_tpu_torch.report.bundle.run_bundle_report"
+    with mock.patch(target, return_value=Path("index.md")) as runner, \
+            mock.patch("audio_analysis_tpu_torch.io.materialize_bundle_view", return_value=Path("unused")):
+        if not refused:
             torch_cli_main(argv + ["--device", "cpu"])
-            assert engine.call_count == 1
+            assert runner.call_count == 1
+            if argv[0] == "watch":
+                assert runner.call_args.args[1].plots == ("--plots" in argv)
+            if target.endswith(".run_bundle_report"):
+                settings = runner.call_args.kwargs["settings"]
+                assert settings.resume == ("--resume" in argv)
+                assert settings.tap_shard == ("0/2" if "--tap-shard" in argv else None)
             return
         with pytest.raises(SystemExit) as exc:
             torch_cli_main(argv + ["--device", "cpu"])
     message = str(exc.value.code)
     assert "not yet ported" in message and flag in message
-    assert engine.call_count == 0
+    assert runner.call_count == 0

@@ -9,8 +9,8 @@ and `bundle --bands-decimate` end to end on the CPU against the JAX CLI.
   and of `report`, parses in the port's parser to the same destination
   and value (so the same defaults), and is then either accepted, refused
   by the JAX CLI's own argument validation with its message, or refused
-  as "not yet ported" by name (`report` as a whole). The port adds only
-  `--device`.
+  as "not yet ported" by name (--multi-host and its coordinator flags,
+  `watch --plots`). The port adds only `--device`.
 - Without CUDA every subcommand that touches the device exits before any
   side effect unless `--device cpu` is given.
 - bundle_metrics.json of `batch --no-plots` and of `bundle --no-plots
@@ -108,9 +108,6 @@ def test_port_parser_covers_the_jax_surface(command):
                 assert str(exc.code) == str(jax_exc.value.code), option
                 continue
             refused = torch_cli._not_yet_ported(command, args)
-            if command == "report":
-                assert refused == "report (the plot report)", option
-                continue
             assert refused is None or refused in action.option_strings, (option, refused)
 
 

@@ -2,7 +2,10 @@
 against its plain torch version on the card, the engine on the card
 against the engine on the CPU, the per-file analyses on the card against
 the same call on the CPU, the AR Gram in float32 on the card against a
-float64 Gram on the card, and Karplus-Strong on the card against the CPU.
+float64 Gram on the card, Karplus-Strong on the card against the CPU, the
+report suite's render jobs with the kernels against the plain versions on
+the card (and its markdown against the golden report), and the
+spectrogram's display pooling on the card against the CPU.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
 JAX is not needed (the card's machine has none). On the card:
 
@@ -14,7 +17,9 @@ tests/test_torch_engine.py; per-file summaries as in
 tests/test_reference_parity.py (TOLERANCES), the z-plane as in
 tests/parity_matrix.py; the AR Gram within 1e-5 relative Frobenius (float32
 sums of up to 65536 products a chunk); Karplus-Strong identical (the same
-float32 operations in the same order).
+float32 operations in the same order); render jobs within
+tests/_render_jobs.py JOB_TOLERANCES; the pooled image bit-equal, its
+percentiles within one 1/128-dB step.
 """
 
 import dataclasses
@@ -26,6 +31,7 @@ import torch
 
 import golden_utils
 import parity_matrix
+from _render_jobs import RecordingPlotWorker, compare_jobs
 from _ar_reference import ar_normal_equations_f64, relative_frobenius
 from _summary_parity import assert_summaries_agree
 from audio_analysis_tpu_torch import signals
@@ -33,7 +39,7 @@ from audio_analysis_tpu_torch.analyses import decay, filterplot, modalcloud, rt6
 from audio_analysis_tpu_torch.analyses._common import FileDsp
 from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
 from audio_analysis_tpu_torch.engine.batch import band_masks
-from audio_analysis_tpu_torch.ops import edc, fftmask, spectral, stft
+from audio_analysis_tpu_torch.ops import display, edc, fftmask, spectral, stft
 from test_reference_parity import TOLERANCES
 
 pytestmark = pytest.mark.cuda
@@ -304,3 +310,38 @@ def test_karplus_strong_on_card_equals_cpu(dev, freq):
     got = signals.generate_karplus_strong_pluck(fundamental_frequency_hz=freq, duration_seconds=0.5, device=dev)
     ref = signals.generate_karplus_strong_pluck(fundamental_frequency_hz=freq, duration_seconds=0.5, device="cpu")
     assert got.samples.dtype == np.float32 and np.array_equal(got.samples, ref.samples)
+
+
+def test_report_render_jobs_on_card_match_plain(dev, tmp_path):
+    """The golden IR's report on the card: K1 and K2 launched twice each,
+    every render job within its tolerance of the plain versions' run on the
+    card, the markdown against the golden report. Figures recorded, not
+    drawn (no matplotlib needed)."""
+    from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
+    from audio_analysis_tpu_torch.report.report import ReportSettings, run_report_from_wav_file
+
+    wav = tmp_path / "golden_ir.wav"
+    write_wav_pcm16(wav, golden_utils.make_golden_ir(), golden_utils.SR)
+    kernel_jobs, plain_jobs = RecordingPlotWorker(), RecordingPlotWorker()
+    edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
+    ours = run_report_from_wav_file(wav, tmp_path / "k" / "golden", ReportSettings(), kernel_jobs, dev)
+    assert (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches) == (2, 2)
+    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        plain = run_report_from_wav_file(wav, tmp_path / "p" / "golden", ReportSettings(), plain_jobs, dev)
+    assert all(v <= 1.0 for v in compare_jobs(plain_jobs.jobs, kernel_jobs.jobs).values())
+    golden_utils.compare_reports(plain.summary_markdown, ours.summary_markdown)
+    golden_utils.compare_reports((golden_utils.GOLDEN_DIR / "verb_report_golden.md").read_text(), ours.summary_markdown)
+
+
+@pytest.mark.parametrize("valid", [(2041, 2041), (2041, 900)], ids=["report_shape", "split_pools"])
+def test_pooled_image_on_card_equals_cpu(dev, valid):
+    rng = np.random.default_rng(5)
+    plane = torch.from_numpy(rng.uniform(-120.0, 0.0, (2, 2041, 2049)).astype(np.float32))
+    args = (np.asarray(valid), 4096, 48_000, 20.0, 20_000.0)
+    card = display.pooled_log_freq_image(plane.to(dev), *args)
+    cpu = display.pooled_log_freq_image(plane, *args)
+    for a, b in zip(card[0], cpu[0]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=0, atol=1 / 128)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=0, atol=1 / 128)

@@ -10,10 +10,11 @@ CLI entry on the CPU, against the JAX CLI on the same files.
   within tests/parity_matrix.py's order-16 tolerance); `deconvolve` prints
   the JAX CLI's lines exactly, and writes a WAV with the JAX one's header.
 - --json: the same keys and leaf types as the JAX CLI's file.
-- Refused before any side effect, with "not yet ported" and the flag's
-  name: --output, a run without --no_show / --no-show (the figures), and
-  `report`. Without CUDA, every per-file command exits unless --device
-  cpu is given.
+- The figures: --output writes the JAX CLI's files (and `report` its
+  markdown and PNGs); a run without --no_show / --no-show draws and shows,
+  a no-op under the headless backend (more in
+  tests/test_torch_figure_cli.py). Without CUDA, every per-file command
+  exits unless --device cpu is given.
 """
 
 import json
@@ -109,6 +110,19 @@ def test_deconvolve_cli_matches_jax_cli(tmp_path, capsys):
     assert (tmp_path / "rec_ir.wav").is_file()
 
 
+def _figure_files(tmp_path, golden_wav, argv, side: str) -> list:
+    """Run one CLI (`side` "ours": the port on the CPU, "theirs": the JAX
+    CLI) with `plots/x` in argv pointing into its own directory; the names
+    of the files it wrote there."""
+    main, extra = (torch_cli.main, ["--device", "cpu"]) if side == "ours" else (jax_cli.main, [])
+    out = tmp_path / side
+    out.mkdir()
+    args = [a.replace("plots/x", str(out / "x")) for a in argv[1:]]
+    json_flag = [] if argv[0] == "report" else ["--json", str(out / "out.json")]  # report has no --json
+    main([argv[0], "--input", golden_wav, *args, *json_flag, *extra])
+    return sorted(q.name for q in out.iterdir())
+
+
 @pytest.mark.parametrize(
     "argv,flag",
     [
@@ -126,13 +140,17 @@ def test_deconvolve_cli_matches_jax_cli(tmp_path, capsys):
          "filter-output", "zplane-show", "ir-output", "report"],
 )
 def test_per_file_figures_and_exact_grid_are_refused(golden_wav, tmp_path, argv, flag):
-    out = tmp_path / "out.json"
-    json_flag = [] if argv[0] == "report" else ["--json", str(out)]  # report has no --json
-    with pytest.raises(SystemExit) as exc:
-        torch_cli.main([argv[0], "--input", golden_wav, *argv[1:], *json_flag, "--device", "cpu"])
-    message = str(exc.value.code)
-    assert "not yet ported" in message and flag in message
-    assert not out.exists()
+    """These figure paths were refused as not yet ported; they now run (the
+    test keeps its name). With --output (and `report`) the port writes the
+    files the JAX CLI writes, PNG names included; without --no_show /
+    --no-show it draws and shows, a no-op under the headless backend, and
+    writes only the JSON, as the JAX CLI does."""
+    ours = _figure_files(tmp_path, golden_wav, argv, "ours")
+    assert ours == _figure_files(tmp_path, golden_wav, argv, "theirs")
+    if flag in ("--output", "report"):
+        assert any(name.endswith(".png") for name in ours)
+    else:
+        assert ours == ["out.json"]
 
 
 @pytest.mark.parametrize("command", ["decay", "modalcloud", "deconvolve", "zplane", "filter", "ir"])

@@ -1,9 +1,9 @@
 """The port's bundle watcher (audio_analysis_tpu_torch/report/watch.py) on
 the CPU: new bundles and their comparison with the one analysed before,
 re-recording in place, incomplete bundles, a corrupt state file, the
-retry budget, the device audio cache across cycles, the refused plot
-reports, the `watch` subcommand, and the JAX package's watcher on the
-same bundles.
+retry budget, the device audio cache across cycles, the plot reports
+(drawn once, then only for the re-recorded taps), the `watch` subcommand,
+and the JAX package's watcher on the same bundles.
 
 Every watch here is bounded: `max_bundles`, `poll_seconds=0.05`,
 `settle_seconds=0` and a `stop()` deadline, so a fault ends the test
@@ -105,17 +105,27 @@ def test_corrupt_state_file_starts_fresh(tmp_path):
 
 
 def test_state_keys_of_the_jax_watcher_survive_a_cycle(tmp_path):
-    """The JAX watcher's figure-skip cache (plot_sigs, plot_sigs_settings)
-    in a shared state file is written back unchanged."""
+    """The figure-skip cache of the state file (plot_sigs,
+    plot_sigs_settings), which the port's watcher now keeps as the JAX
+    watcher does, survives a cycle without plots when it was written for
+    the same figure settings; written for other settings, it is dropped
+    and the current settings recorded, as the JAX watcher does."""
     write_bundle(tmp_path / "run1", _taps(1), SR)
     plot_sigs = {str(tmp_path / "old"): {"tap0": "sig"}}
+    current = repr(("mono", False))  # the JAX watcher's fingerprint of the default settings
     (tmp_path / ".aa_watch_state.json").write_text(json.dumps(
-        {"analyzed": {}, "last_metrics": None, "plot_sigs": plot_sigs, "plot_sigs_settings": "abc"}
+        {"analyzed": {}, "last_metrics": None, "plot_sigs": plot_sigs, "plot_sigs_settings": current}
     ))
     assert len(_watch(tmp_path, max_bundles=1)) == 1
     state = json.loads((tmp_path / ".aa_watch_state.json").read_text())
-    assert state["plot_sigs"] == plot_sigs and state["plot_sigs_settings"] == "abc"
-    assert list(state["analyzed"]) == [str(tmp_path / "run1")]
+    assert state["plot_sigs"] == plot_sigs and state["plot_sigs_settings"] == current
+    write_bundle(tmp_path / "run2", _taps(1), SR)
+    state["plot_sigs_settings"] = "abc"
+    (tmp_path / ".aa_watch_state.json").write_text(json.dumps(state))
+    assert len(_watch(tmp_path, max_bundles=1)) == 1
+    state = json.loads((tmp_path / ".aa_watch_state.json").read_text())
+    assert state["plot_sigs"] == {} and state["plot_sigs_settings"] == current
+    assert list(state["analyzed"]) == [str(tmp_path / "run1"), str(tmp_path / "run2")]
 
 
 def test_failing_bundle_is_retried_then_given_up(tmp_path):
@@ -148,8 +158,29 @@ def test_unchanged_chunks_stay_on_the_device_across_cycles(tmp_path):
 
 
 def test_plot_reports_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _watch(tmp_path, max_bundles=1, seconds=0.5, plots=True)
+    """The plot reports of the watcher were refused; they are ported now
+    (the test keeps its name). Every tap is drawn into reports_plots the
+    first time; after one tap is re-recorded in place, only that tap is
+    drawn again, and the event log counts both."""
+    pytest.importorskip("matplotlib")
+    root = tmp_path / "bundle"
+    long_taps = {name: np.tile(x, (4, 1)) for name, x in _taps(2).items()}  # 2^15 samples: every analysis runs
+    write_bundle(root, long_taps, SR)
+    assert len(_watch(root, max_bundles=1, plots=True)) == 1
+    plots = root / "reports_plots"
+    first = {q.name: q.stat().st_mtime_ns for q in (plots / "tap1").glob("*.png")}
+    assert len(first) == 15 and len(list((plots / "tap0").glob("*.png"))) == 15
+    time.sleep(0.05)
+    write_bundle(root, {"tap0": long_taps["tap0"] * 0.5}, SR)
+    meta = json.loads((root / "meta.json").read_text())
+    meta["taps"] = ["tap0", "tap1"]
+    (root / "meta.json").write_text(json.dumps(meta))
+    assert len(_watch(root, max_bundles=1, plots=True)) == 1
+    assert {q.name: q.stat().st_mtime_ns for q in (plots / "tap1").glob("*.png")} == first
+    events = _log_lines(root)
+    assert [(e["figures_rendered_taps"], e["figures_skipped_taps"]) for e in events] == [(2, 0), (1, 1)]
+    state = json.loads((root / ".aa_watch_state.json").read_text())
+    assert set(state["plot_sigs"][str(root)]) == {"tap0", "tap1"}
 
 
 def test_watch_subcommand(tmp_path):
