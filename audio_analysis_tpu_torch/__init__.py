@@ -8,8 +8,10 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
   ops/      batched DSP primitives (torch), plus the kernel wrappers
             ops.edc (Schroeder EDC, csrc/edc.cu) and ops.stft (frame STFT
             magnitude, csrc/stft.cu)
-  engine/   the fused per-chunk analysis (analyze_batch) and the pipelined
-            bundle host entry (analyze_bundle_pipelined)
+  engine/   the fused per-chunk analysis (analyze_batch), the pipelined
+            bundle host entry (analyze_bundle_pipelined), the tap batch
+            sharded over a mesh of devices (engine.mesh) and the multi-host
+            job over a gloo process group (engine.distributed)
   report/   the engine bundle report (per-tap markdown + bundle_metrics.json),
             the run-to-run comparison, the bundle watcher, and the plot
             reports (report.report, report.bundle, report.warmup)

@@ -5,6 +5,7 @@ messages, stdout and exit codes.
 
     python -m audio_analysis_tpu_torch.cli bundle --input <root> --no-plots [--compare PREV --fail-on-change]
     python -m audio_analysis_tpu_torch.cli bundle --input <root> [--resume] [--tap-shard I/N] [--plot-processes N]
+    python -m audio_analysis_tpu_torch.cli bundle --input <root> --multi-host --coordinator H:P --num-processes N --process-id I
     python -m audio_analysis_tpu_torch.cli batch --inputs a.wav b.wav --output <dir> [--no-plots]
     python -m audio_analysis_tpu_torch.cli watch --input <recorder output dir> [--plots]
     python -m audio_analysis_tpu_torch.cli compare <previous run> <current run>
@@ -22,13 +23,21 @@ that takes --device exits at once unless `--device cpu` is given. Figures
 --output or without --no_show / --no-show) need matplotlib: where it does
 not import, such a command exits before any work with a message naming
 it. Under a headless backend the interactive show is a no-op, as in the
-JAX CLI. `--multi-host` (and its coordinator flags) is not ported yet
-and is refused with a "not yet ported" exit.
+JAX CLI.
+
+`bundle --multi-host` runs one rank of a multi-host job
+(engine.distributed): with `--coordinator H:P` it joins a gloo process group
+of `--num-processes` ranks as `--process-id`; without it, torchrun's
+environment, or one process alone. Each rank analyses and reports its own
+taps on its device (`--device cuda`: cuda:(LOCAL_RANK or the rank) modulo
+the visible devices; `--device cpu`: the plain versions), and only rank 0
+prints the index line and exits 3 on flagged changes.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from dataclasses import replace
 from functools import partial
 from typing import Optional, Sequence
@@ -160,9 +169,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "bundle over N processes or machines sharing the filesystem, then "
                         "merge the index with one --resume run.")
     p.add_argument("--multi-host", dest="multi_host", action="store_true",
-                   help="Multi-host engine path (not yet ported).")
+                   help="Multi-host engine path: every rank analyses and reports its own taps, "
+                        "rank 0 writes the index (engine.distributed).")
     p.add_argument("--coordinator", dest="coordinator", type=str, default=None,
-                   help="Coordinator of --multi-host (not yet ported).")
+                   help="host:port of the gloo process group's rendezvous (with --multi-host, "
+                        "when torchrun's environment does not give it).")
     p.add_argument("--num-processes", dest="num_processes", type=int, default=None)
     p.add_argument("--process-id", dest="process_id", type=int, default=None)
     _add_device(p)
@@ -520,27 +531,11 @@ FIGURE_COMMANDS = (
 )
 
 
-def _not_yet_ported(cmd: str, args: argparse.Namespace) -> Optional[str]:
-    """The first flag of `cmd` that the port does not have yet (the
-    multi-host engine). `--plot-processes` is accepted and ignored where
-    the JAX CLI ignores it: on the engine paths, which draw nothing."""
-    refused = (
-        ("--multi-host", getattr(args, "multi_host", False)),
-        ("--coordinator", getattr(args, "coordinator", None) is not None),
-        ("--num-processes", getattr(args, "num_processes", None) is not None),
-        ("--process-id", getattr(args, "process_id", None) is not None),
-    )
-    for flag, given in refused:
-        if given:
-            return flag
-    return None
-
-
 def _draws_figures(cmd: str, args: argparse.Namespace) -> bool:
     if cmd == "report":
         return True
     if cmd in ("bundle", "batch"):
-        return not bool(args.no_plots)
+        return not (bool(args.no_plots) or bool(getattr(args, "multi_host", False)))
     if cmd == "watch":
         return bool(args.watch_plots)
     if cmd in FIGURE_COMMANDS:
@@ -578,9 +573,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         return
 
     _check_args(cmd, args)
-    missing = _not_yet_ported(cmd, args)
-    if missing is not None:
-        raise SystemExit(f"analyse {cmd}: {missing} is not yet ported to audio_analysis_tpu_torch")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -625,6 +617,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             raise SystemExit(str(exc)) from None
         print(f"Materialised bundle view: {root} ({len(args.input_wav_paths)} files)")
 
+    if bool(getattr(args, "multi_host", False)):
+        _run_multi_host(args, device)
+        return
     if not args.no_plots:
         _run_plot_bundle(args, device)
         return
@@ -641,6 +636,41 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.compare_to and bool(args.fail_on_change) and index_has_flagged_changes(index):
         print("Changes flagged vs previous run (see the index) — exiting 3.")
         raise SystemExit(3)
+
+
+def _run_multi_host(args: argparse.Namespace, device: torch.device) -> None:
+    """`bundle --multi-host`: join the job, run this rank's share, leave
+    the process group so that every rank exits cleanly."""
+    import torch.distributed as dist
+
+    from audio_analysis_tpu_torch.engine import distributed
+
+    if args.coordinator:
+        if args.num_processes is None or args.process_id is None:
+            raise SystemExit(
+                "bundle --multi-host --coordinator requires both "
+                "--num-processes and --process-id"
+            )
+        distributed.initialize_multi_host(str(args.coordinator), int(args.num_processes), int(args.process_id))
+    elif os.environ.get("MASTER_ADDR") and os.environ.get("WORLD_SIZE"):
+        distributed.initialize_multi_host()
+    try:
+        index = distributed.run_bundle_report_multi_host(
+            str(args.bundle_root),
+            replace(_engine_config(args), downmix_to_mono=bool(args.use_mono_downmix)),
+            reports_subdir=str(args.reports_subdir),
+            compare_to=args.compare_to,
+            compare_threshold_pct=float(args.compare_threshold),
+            devices=[distributed.rank_device(device)],
+        )
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if index is not None:
+        print(f"Wrote bundle report index: {index}")
+        if args.compare_to and bool(args.fail_on_change) and index_has_flagged_changes(index):
+            print("Changes flagged vs previous run (see the index) — exiting 3.")
+            raise SystemExit(3)
 
 
 def _run_report(args: argparse.Namespace, device: torch.device) -> None:

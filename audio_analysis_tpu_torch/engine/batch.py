@@ -13,7 +13,8 @@ Shapes: samples (B, C, N) float32 zero-padded or raw int16 PCM (scaled by
 `analyze_bundle_pipelined` is the host entry of the bundle report: chunk
 k+1 decodes and uploads on a worker thread (pinned host memory, a side
 stream, an event the compute stream waits on) while chunk k computes, and
-each chunk comes back in one packed device-to-host copy.
+each chunk comes back in one packed device-to-host copy. On a mesh
+(engine.mesh) each chunk is cut into one block per device.
 """
 
 from __future__ import annotations
@@ -436,56 +437,66 @@ def analyze_bundle_pipelined(
     on) while chunk k computes. `prefetch_chunks` chunks decode and upload
     ahead of the one being computed (>= 1).
 
-    `device_chunk_cache`: an object with `get(chunk_index) -> tensor | None`
-    and `put(chunk_index, tensor)`; a hit skips that chunk's decode and
-    upload.
+    With `mesh` (engine.mesh.make_mesh: a tuple of devices) a chunk is
+    `chunk_taps` taps per shard (fewer for a small bundle), each shard's
+    contiguous block uploaded to its own device on that device's side
+    stream, and `device` is not used; results still come back in one
+    packed copy.
+
+    `device_chunk_cache`: an object with `get(chunk_index)` and
+    `put(chunk_index, blocks)`, where blocks is the chunk's tuple of
+    per-shard device tensors (one for a single device); a hit skips that
+    chunk's decode and upload.
 
     `on_chunk_result(lo, hi, res)`: when given, results are fetched one
     chunk at a time, in order, and the callback runs on each (pad-trimmed)
     chunk dict; otherwise every chunk comes back in one packed copy.
-
-    `mesh` (multi-device sharding) is not yet ported.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-device) analysis is not yet ported")
-    device = torch.device(device)
+    from audio_analysis_tpu_torch.engine.mesh import analyze_batch_sharded_flat
+
+    shards = tuple(mesh) if mesh is not None else (torch.device(device),)
     b = int(len(lengths))
-    chunk = max(1, min(chunk_taps, b))
+    per_shard = max(1, min(chunk_taps, -(-b // len(shards))))
+    chunk = per_shard * len(shards)
     lengths = np.asarray(lengths, np.int32)
     use_cache = device_chunk_cache is not None
-    on_cuda = device.type == "cuda"
-    upload_stream = torch.cuda.Stream(device) if on_cuda else None
+    side_streams = {d: torch.cuda.Stream(d) for d in dict.fromkeys(shards) if d.type == "cuda"}
 
     def upload(host: np.ndarray):
-        """(device tensor, event or None, pinned host tensor kept alive)."""
-        tensor = torch.from_numpy(np.ascontiguousarray(host))
-        if not on_cuda:
-            return tensor.to(device), None, None
-        pinned = tensor.pin_memory()
-        with torch.cuda.stream(upload_stream):
-            dev = pinned.to(device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(upload_stream)
-        return dev, event, pinned
+        """Each shard's block of `host`: (device tensor, event or None,
+        pinned host tensor kept alive) per shard."""
+        blocks = []
+        for i, dev in enumerate(shards):
+            tensor = torch.from_numpy(np.ascontiguousarray(host[i * per_shard : (i + 1) * per_shard]))
+            if dev.type != "cuda":
+                blocks.append((tensor.to(dev), None, None))
+                continue
+            pinned = tensor.pin_memory()
+            with torch.cuda.stream(side_streams[dev]):
+                block = pinned.to(dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side_streams[dev])
+            blocks.append((block, event, pinned))
+        return blocks
 
     def load_chunk(lo: int, hi: int):
         take = hi - lo
         cl = lengths[lo:hi]
         if take < chunk:
             cl = np.concatenate([cl, np.full(chunk - take, _pad_fill_length(n_max), np.int32)])
-        uploads = [upload(cl)]
+        length_blocks = upload(cl)
         hit = device_chunk_cache.get(lo // chunk) if use_cache else None
         if hit is None:
             cb = loader(lo, hi)
             if take < chunk:
                 pad = np.zeros((chunk - take,) + cb.shape[1:], cb.dtype)
                 cb = np.concatenate([cb, pad], axis=0)
-            uploads.append(upload(cb))
+            audio_blocks = upload(cb)
             if use_cache:
-                device_chunk_cache.put(lo // chunk, uploads[-1][0])
+                device_chunk_cache.put(lo // chunk, tuple(block for block, _, _ in audio_blocks))
         else:
-            uploads.append((hit, None, None))
-        return uploads
+            audio_blocks = [(block, None, None) for block in hit]
+        return length_blocks, audio_blocks
 
     decode_wait_s = dispatch_s = 0.0
     flats = []
@@ -501,20 +512,21 @@ def analyze_bundle_pipelined(
         for i, lo in enumerate(starts):
             hi = min(b, lo + chunk)
             t0 = time.perf_counter()
-            uploads = futs.pop(i).result()
+            length_blocks, audio_blocks = futs.pop(i).result()
             decode_wait_s += time.perf_counter() - t0
             nxt = i + prefetch
             if nxt < len(starts):
                 futs[nxt] = ex.submit(load_chunk, starts[nxt], min(b, starts[nxt] + chunk))
             t0 = time.perf_counter()
-            if on_cuda:
-                compute = torch.cuda.current_stream(device)
-                for tensor, event, _pinned in uploads:
+            for blocks in (length_blocks, audio_blocks):
+                for dev, (block, event, _pinned) in zip(shards, blocks):
                     if event is not None:
+                        compute = torch.cuda.current_stream(dev)
                         compute.wait_event(event)
-                        tensor.record_stream(compute)
-            (cl_dev, _, _), (cb_dev, _, _) = uploads
-            flat, spec = analyze_batch_flat(cb_dev, cl_dev, config)
+                        block.record_stream(compute)
+            flat, spec = analyze_batch_sharded_flat(
+                shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config
+            )
             flats.append(flat)
             dispatch_s += time.perf_counter() - t0
             takes.append(hi - lo)
@@ -560,14 +572,16 @@ def analyze_bundle(
     config: EngineConfig = EngineConfig(),
     chunk_taps: int = 16,
     device: "str | torch.device" = "cuda",
+    mesh=None,
 ) -> Dict[str, np.ndarray]:
     """Host entry for a bundle already decoded into one (B, C, N) array:
-    the pipelined entry over slices of it."""
+    the pipelined entry over slices of it (on `mesh` when given)."""
     return analyze_bundle_pipelined(
         lambda lo, hi: batch[lo:hi],
         lengths,
         batch.shape[-1],
         config,
         chunk_taps,
+        mesh=mesh,
         device=device,
     )

@@ -7,6 +7,7 @@ from audio_analysis_tpu_torch.io.bundle import (  # noqa: F401
     load_bundle_batch,
     load_bundle_batch_i16,
     materialize_bundle_view,
+    open_bundle_chunks,
     open_bundle_chunks_i16,
     read_bundle_meta,
     write_bundle,

@@ -28,6 +28,7 @@ from audio_analysis_tpu_torch.io.wav import (
     duplicate_mono_to_stereo,
     ensure_2d_channel_array,
     load_wav_file,
+    read_wav_header_info,
     wav_header_info,
     wav_is_plain_pcm16,
     write_wav_pcm16,
@@ -185,11 +186,13 @@ def _tap_paths(bundle_root: Path, meta: BundleMeta) -> List[Path]:
 
 
 def _probe_lengths(paths: List[Path], meta: BundleMeta, pad_multiple: int) -> Tuple[List[int], int]:
-    """Every tap's frame count from its header (native probe), checked
-    against the bundle's rate, and the padded length N_max."""
+    """Every tap's frame count from its header (the native probe, else the
+    header parser), checked against the bundle's rate, and the padded
+    length N_max."""
+    probe = native.read_wav_info if native.available() else read_wav_header_info
     lengths = []
     for p in paths:
-        frames, _, rate = native.read_wav_info(p)
+        frames, _, rate = probe(p)
         if rate != meta.sample_rate_hz:
             raise ValueError(f"Tap {p} sample rate {rate} != bundle {meta.sample_rate_hz}")
         lengths.append(frames)
@@ -257,4 +260,31 @@ def open_bundle_chunks_i16(bundle_root: str | Path, pad_multiple: int = 4096, nu
 
     if not all(wav_is_plain_pcm16(p) for p in paths):
         return None
+    return meta, np.asarray(lengths, np.int32), meta.taps, n_max, loader
+
+
+def open_bundle_chunks(bundle_root: str | Path, pad_multiple: int = 4096, num_threads: int = 8):
+    """Chunked decode of any bundle, as open_bundle_chunks_i16: the PCM16
+    fast path where it applies, else a loader(lo, hi) of planar
+    (hi-lo, 2, n_max) float32 chunks, mono taps upmixed. Every tap's
+    header is probed and its rate checked up front, with or without the
+    native library."""
+    chunked = open_bundle_chunks_i16(bundle_root, pad_multiple, num_threads)
+    if chunked is not None:
+        return chunked
+    bundle_root = Path(bundle_root)
+    meta = read_bundle_meta(bundle_root)
+    paths = _tap_paths(bundle_root, meta)
+    lengths, n_max = _probe_lengths(paths, meta, pad_multiple)
+
+    def loader(lo: int, hi: int):
+        if native.available():
+            interleaved, _ = native.read_bundle(paths[lo:hi], n_max, 2, num_threads)
+            return np.ascontiguousarray(np.transpose(interleaved, (0, 2, 1)))
+        chunk = np.zeros((hi - lo, 2, n_max), np.float32)
+        for row, p in enumerate(paths[lo:hi]):
+            samples = load_wav_file(p, meta.sample_rate_hz).samples
+            chunk[row, :, : samples.shape[0]] = samples.T
+        return chunk
+
     return meta, np.asarray(lengths, np.int32), meta.taps, n_max, loader

@@ -3,6 +3,12 @@ Engine-backed bundle reports (audio_analysis_tpu/report/engine_report.py):
 decode every tap, run the fused engine over the bundle in chunks, and write
 per-tap markdown summaries (the deterministic text formats of the plot
 reports, minus the images) plus a machine-readable bundle_metrics.json.
+
+The run's `device` decides between one device and a mesh of devices
+(engine.mesh), as the JAX package's `use_device_mesh="auto"` does: the
+bare `cuda` with more than one CUDA device visible shards the tap batch
+over every one of them; an explicit device (`cuda:1`, `cpu`) means that
+one device.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from audio_analysis_tpu_torch.engine.batch import (
     band_names,
 )
 from audio_analysis_tpu_torch.engine.config import EngineConfig
+from audio_analysis_tpu_torch.engine.mesh import Mesh, make_mesh
 from audio_analysis_tpu_torch.io import (
     load_bundle_batch,
     load_bundle_batch_i16,
@@ -47,14 +54,21 @@ class EngineBundleSettings:
     # chunks decoded + uploaded ahead of the one being computed
     prefetch_chunks: int = 2
     # keep the padded int16 tap audio on the device between runs of the
-    # same unchanged bundle (keyed per chunk by tap path + mtime + size),
-    # so a warm rerun skips decode and upload
+    # same unchanged bundle (keyed per chunk by tap path + mtime + size,
+    # and by the device or mesh), so a warm rerun skips decode and upload
     cache_device_audio: bool = True
     # a previous run's bundle_metrics.json (or its reports dir, or bundle
     # root): append a "Changes vs ..." section to the index flagging the
     # headline metrics that moved by at least the threshold (report/compare.py)
     compare_to: Optional[str] = None
     compare_threshold_pct: float = 1.0
+
+
+def _engine_mesh(device: torch.device) -> Optional[Mesh]:
+    """The mesh of a run, or None for the one `device` (module docstring)."""
+    if device.type != "cuda" or device.index is not None or torch.cuda.device_count() <= 1:
+        return None
+    return make_mesh()
 
 
 def _channel_names_from_output(out: Dict[str, np.ndarray]) -> List[str]:
@@ -241,10 +255,11 @@ _DEVICE_AUDIO_CACHE: Dict = {"shape_key": None, "entries": {}}
 class _ChunkCache:
     """Per-chunk get/put view over _DEVICE_AUDIO_CACHE for one bundle run.
 
-    Each entry is (chunk_signature, device_tensor), the signature being the
-    (path, mtime_ns, size) tuples of exactly the taps in that chunk. Entries
-    of the previous run are popped as they are consulted, so a replaced
-    chunk's device buffer is released before its successor uploads."""
+    Each entry is (chunk_signature, the chunk's per-shard device tensors),
+    the signature being the (path, mtime_ns, size) tuples of exactly the
+    taps in that chunk. Entries of the previous run are popped as they are
+    consulted, so a replaced chunk's device buffer is released before its
+    successor uploads."""
 
     def __init__(self, sig_for: list, chunk_taps: int, old: Dict, new: Dict):
         self._sig_for = sig_for
@@ -272,20 +287,30 @@ class _ChunkCache:
 
 
 def _device_audio_chunks(
-    bundle_root: Path, names: List[str], chunk_taps: int, n_max: int, device: torch.device
+    bundle_root: Path,
+    names: List[str],
+    chunk_taps: int,
+    n_max: int,
+    device: torch.device,
+    mesh: Optional[Mesh] = None,
 ) -> _ChunkCache:
     """A per-chunk cache view for this bundle state. Chunks whose taps'
     path/mtime/size are unchanged, at the same chunking, padded length and
-    device, are served from device memory."""
+    device (or mesh), are served from device memory. A chunk is chunk_taps
+    taps per shard, clamped for a small bundle as analyze_bundle_pipelined
+    clamps it; a single-device entry never serves a mesh run, nor a mesh
+    entry a single-device run."""
     sig_for = []
     for tap in names:
         p = bundle_root / "taps" / f"{tap}.wav"
         st = os.stat(p)
         sig_for.append((str(p), st.st_mtime_ns, st.st_size))
 
-    eff_chunk = max(1, min(int(chunk_taps), len(names)))
+    shards = len(mesh) if mesh is not None else 1
+    eff_chunk = max(1, min(int(chunk_taps), -(-len(names) // shards))) * shards
+    placement = ("device", str(device)) if mesh is None else ("mesh", tuple(str(d) for d in mesh))
     cache = _DEVICE_AUDIO_CACHE
-    shape_key = (eff_chunk, int(n_max), str(device))
+    shape_key = (eff_chunk, int(n_max), placement)
     if cache["shape_key"] != shape_key:
         cache["shape_key"] = shape_key
         cache["entries"] = {}
@@ -372,14 +397,15 @@ def run_bundle_report_engine(
 
     phases: Dict[str, float] = {"probe_s": round(load_seconds, 4)}
     start_compute = time.perf_counter()
+    mesh = _engine_mesh(device)
     if batch is None:
         chunk_cache = None
         if settings.cache_device_audio:
             chunk_cache = _device_audio_chunks(
-                bundle_root, names, settings.chunk_taps, n_max, device
+                bundle_root, names, settings.chunk_taps, n_max, device, mesh
             )
         out = analyze_bundle_pipelined(
-            loader, lengths, n_max, config, settings.chunk_taps,
+            loader, lengths, n_max, config, settings.chunk_taps, mesh=mesh,
             timings=phases, device_chunk_cache=chunk_cache,
             prefetch_chunks=settings.prefetch_chunks,
             on_chunk_result=_on_chunk, device=device,
@@ -389,7 +415,7 @@ def run_bundle_report_engine(
             phases["audio_chunks_uploaded"] = chunk_cache.uploaded
         phases["markdown_s"] = phases.pop("chunk_callback_s", 0.0)
     else:
-        out = analyze_bundle(batch, lengths, config, settings.chunk_taps, device)
+        out = analyze_bundle(batch, lengths, config, settings.chunk_taps, device, mesh=mesh)
     compute_seconds = time.perf_counter() - start_compute
     phases["compute_total_s"] = round(compute_seconds, 4)
 

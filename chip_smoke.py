@@ -104,11 +104,29 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      tap cached, 0 launches) and `watch --plots` (10 and 10). Where it does
      not: `report`, the plot `bundle` and `watch --plots` must exit naming
      matplotlib before any work.
+ 11. the scale-out engine (rank files under build/chip_smoke_multi_device/):
+     (a) `analyze_bundle_pipelined` over the bundle on a mesh of two shards
+     on one card (`make_mesh(devices=[cuda:0, cuda:0])`, 8 taps a shard:
+     one chunk, K1 and K2 launched 4 and 4, exactly), cold, warm beside the
+     single-device run, and with the plain versions swapped in; the mesh
+     run against the single-device run (the largest difference per key
+     reported) and against the plain run, under the JSON limits of phase
+     5; (b) a two-rank `bundle --multi-host` job through the CLI entry
+     (`--coordinator 127.0.0.1:<free> --num-processes 2 --process-id i`),
+     both ranks on cuda:0, 8 taps a rank, each rank running it cold and
+     then warm in one process (K1 and K2 2 and 2 a run, exactly; engine
+     seconds, peak memory, bytes sent through the gathers; no jax and nothing of the JAX
+     package loaded), every rank with a timeout; only rank 0 prints the
+     index line; the per-tap markdown bodies and bundle_metrics.json
+     against the single-process run of phase 4, the index aggregates
+     against numpy's median and mean of its per-tap values; the job's wall
+     beside a single-process `bundle --no-plots` job's.
 
 Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
 package (audio_analysis_tpu). The last lines are the per-file JSON, the
-phase-9 (`per_file_rest`) JSON, the phase-10 (`plots`) JSON, the kernels'
-JSON, the card's name and power limit, and {"ok": true, "device": {...}}.
+phase-9 (`per_file_rest`) JSON, the phase-10 (`plots`) JSON, the phase-11
+(`multi_device`) JSON, the kernels' JSON, the card's name and power limit,
+and {"ok": true, "device": {...}}.
 There is no CPU fallback: without CUDA the script exits non-zero at once.
 """
 
@@ -1378,6 +1396,225 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     return out
 
 
+# ------------------------------------------------------- multi-device ----
+
+# One rank of phase 11's job: `bundle --multi-host` through the CLI entry,
+# twice in one process (cold, then warm, each with its own coordinator),
+# the launch counters set to 0 before each run and read after it.
+# A rank's gloo gathers send its payloads pickled (what all_gather_object
+# serialises); the rank code counts those bytes.
+RANK_CODE = r"""
+import json, pickle, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from audio_analysis_tpu_torch.cli.analyse_cli import main
+from audio_analysis_tpu_torch.engine import distributed
+from audio_analysis_tpu_torch.ops import edc, stft
+
+out_json, argv, addresses = sys.argv[2], sys.argv[3:-2], sys.argv[-2:]
+real_analyze, real_gather, engine_s, sent = distributed.analyze_bundle_multi_host, distributed._all_gather, [], []
+
+def timed_analyze(*args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = real_analyze(*args, **kwargs)
+    torch.cuda.synchronize()
+    engine_s.append(time.perf_counter() - t0)
+    return out
+
+def counted_gather(obj):
+    sent.append(len(pickle.dumps(obj)))
+    return real_gather(obj)
+
+distributed.analyze_bundle_multi_host = timed_analyze
+distributed._all_gather = counted_gather
+torch.empty(0, device="cuda:0")  # the allocator's statistics need a context
+runs = []
+for address in addresses:
+    edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
+    sent.clear()
+    torch.cuda.reset_peak_memory_stats(0)
+    t0 = time.perf_counter()
+    main(argv + ["--coordinator", address])
+    torch.cuda.synchronize()
+    runs.append({"wall_s": time.perf_counter() - t0, "engine_s": engine_s[-1],
+                 "launches": {"edc": edc.EDC_KERNEL.launches, "stft": stft.STFT_KERNEL.launches},
+                 "peak_device_memory_gib": torch.cuda.max_memory_allocated(0) / 2**30,
+                 "gather_bytes_sent": sum(sent), "gathers": len(sent)})
+banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "audio_analysis_tpu"))
+json.dump({"runs": runs, "banned_modules": banned, "device": str(distributed.rank_device("cuda"))},
+          open(out_json, "w"))
+"""
+RANKS = 2
+RANK_TIMEOUT_S = 300
+
+
+def free_address() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{s.getsockname()[1]}"
+
+
+def run_processes(commands, env) -> tuple:
+    """(wall seconds, outputs) of processes run together; every output pipe
+    is drained at once, survivors of RANK_TIMEOUT_S are killed, and any
+    non-zero exit or timeout raises."""
+    from concurrent.futures import ThreadPoolExecutor, wait
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    try:
+        with ThreadPoolExecutor(len(procs)) as pool:
+            futures = [pool.submit(p.communicate, timeout=RANK_TIMEOUT_S) for p in procs]
+            wait(futures)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    outputs = [f.result()[0] if f.exception() is None else "timed out" for f in futures]
+    for i, (p, text) in enumerate(zip(procs, outputs)):
+        if p.returncode != 0 or text == "timed out":
+            raise AssertionError(f"process {i} of {len(procs)} failed ({p.returncode}):\n{text[-4000:]}")
+    return wall, outputs
+
+
+def largest_differences(ours: dict, ref: dict) -> dict:
+    """Largest absolute difference of each metric (NaN where both are)."""
+    import numpy as np
+
+    out = {}
+    for key in ref:
+        a, b = np.asarray(ours[key], np.float64), np.asarray(ref[key], np.float64)
+        both = np.isnan(a) & np.isnan(b)
+        out[key] = float(np.max(np.where(both, 0.0, np.abs(a - b)), initial=0.0))
+    return out
+
+
+def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict, single_json: dict) -> dict:
+    """Phase 11: (a) the pipelined engine on a mesh of two shards on one
+    card against the single-device run and against the mesh run with the
+    plain versions; (b) a two-rank `bundle --multi-host` job through the
+    CLI entry, both ranks on the card, against the single-process run."""
+    import os
+
+    import numpy as np
+
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle_pipelined, make_mesh
+    from audio_analysis_tpu_torch.engine.mesh import bundle_aggregates
+    from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    out = {"card": card_line()}
+    _meta, lengths, names, n_max, loader = open_bundle_chunks_i16(root)
+    cfg = EngineConfig()
+    mesh = make_mesh(devices=[dev, dev])
+
+    def run(run_mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = analyze_bundle_pipelined(loader, lengths, n_max, cfg, CHUNK_TAPS, mesh=run_mesh, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, res
+
+    # 11 (a): 16 taps, 8 a shard: one chunk, each shard the 8-tap batch of
+    # a single-device chunk, so K1 and K2 launch twice a shard
+    _s, single = run(None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (cold, sharded), launches = count_launches(counters, lambda: run(mesh))
+    if (launches["edc"], launches["stft"]) != (4, 4):
+        raise AssertionError(f"mesh of 2 shards: launches {launches}, expected K1 4, K2 4")
+    launches_by_path["multi_device"] = launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    warm = [run(mesh)[0] for _ in range(3)]
+    single_warm = [run(None)[0] for _ in range(3)]
+    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        plain_s, plain = run(mesh)
+    # as bundle_metrics.json holds them: floats as float64, under its limits
+    compare_metrics(*(json.loads(json.dumps({k: v.tolist() for k, v in r.items()})) for r in (sharded, single)))
+    compare_metrics(*(json.loads(json.dumps({k: v.tolist() for k, v in r.items()})) for r in (sharded, plain)))
+    diff = largest_differences(sharded, single)
+    out["mesh"] = {
+        "devices": [str(d) for d in mesh], "cold_s": cold, "warm_s": warm, "single_device_warm_s": single_warm,
+        "plain_s": plain_s, "peak_device_memory_gib": peak, "launches": launches,
+        "max_abs_diff_vs_single_device": max(diff.values()),
+        "keys_differing_from_single_device": {k: v for k, v in diff.items() if v > 0.0},
+        "max_abs_diff_vs_plain": max(largest_differences(sharded, plain).values()),
+    }
+    log(f"multi_device (a) mesh {out['mesh']['devices']}: cold {cold:.3f} s, warm {min(warm):.3f}-{max(warm):.3f} s "
+        f"(single device {min(single_warm):.3f}-{max(single_warm):.3f} s), peak {peak:.3f} GiB, launches {launches}; "
+        f"largest difference from the single-device run {out['mesh']['max_abs_diff_vs_single_device']:.3g}, "
+        f"kernel run == plain run")
+
+    # 11 (b): the two-rank job, both ranks on the card, against a
+    # single-process `bundle --no-plots` job and phase 4's single-process run
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", PYTHONPATH=str(REPO))
+    single_wall, _ = run_processes([[sys.executable, "-m", "audio_analysis_tpu_torch.cli", "bundle", "--input",
+                                     str(root), "--no-plots", "--reports-subdir", "reports_single_job"]], env)
+    work = REPO / "build" / "chip_smoke_multi_device"
+    work.mkdir(parents=True, exist_ok=True)
+    rank_json = [work / f"rank{i}.json" for i in range(RANKS)]
+    addresses = [free_address(), free_address()]
+    commands = [
+        [sys.executable, "-c", RANK_CODE, str(REPO), str(rank_json[i]), "bundle", "--input", str(root),
+         "--multi-host", "--num-processes", str(RANKS), "--process-id", str(i), "--reports-subdir", "reports_mh",
+         *addresses]
+        for i in range(RANKS)
+    ]
+    job_wall, logs = run_processes(commands, env)
+    ranks = [json.loads(p.read_text()) for p in rank_json]
+    total = {"edc": 0, "stft": 0}
+    for i, r in enumerate(ranks):
+        if r["banned_modules"]:
+            raise AssertionError(f"rank {i} loaded {r['banned_modules']}")
+        for one in r["runs"]:
+            if one["launches"] != {"edc": 2, "stft": 2}:
+                raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2")
+        total = {k: total[k] + r["runs"][0]["launches"][k] for k in total}
+    launches_by_path["multi_device --multi-host (2 ranks)"] = total
+    if ["Wrote bundle report index:" in log for log in logs] != [True, False]:
+        raise AssertionError("the index line must come from rank 0 alone")
+    reports = root / "reports_mh"
+    mh_json = json.loads((reports / "bundle_metrics.json").read_text())
+    if list(mh_json) != ["taps", "channels", "metrics"] or mh_json["taps"] != names:
+        raise AssertionError(f"multi-host bundle_metrics.json: keys {list(mh_json)}")
+    compare_metrics(mh_json["metrics"], single_json["metrics"])
+    for i, tap in enumerate(names):
+        ours = (reports / tap / f"{tap}_report.md").read_text()
+        if f"**Analysed by process:** {i // (TAPS // RANKS)}" not in ours:
+            raise AssertionError(f"{tap}: not analysed by its owner")
+        single_md = (root / "reports_cuda" / tap / f"{tap}_report.md").read_text()
+        compare_markdown(ours.split("---\n\n", 1)[1], single_md.split("---\n\n", 1)[1], tap)
+    index = (reports / "bundle_report.md").read_text()
+    m = single_json["metrics"]
+    expected = bundle_aggregates(m["t30_rt60"], m["t30_ok"], m["early10_time"], m["early10_ok"])
+    t30 = np.asarray(m["t30_rt60"])[np.asarray(m["t30_ok"], bool)]
+    early = np.asarray(m["early10_time"])[np.asarray(m["early10_ok"], bool)]
+    for key, numpy_value in (("bundle_median_t30", np.median(t30)), ("bundle_mean_early10", np.mean(early))):
+        printed = float(re.search(rf"\*\*{key}:\*\* (\S+) s", index).group(1))
+        if abs(printed - numpy_value) > 1e-3 * abs(numpy_value) + 1e-4 or abs(printed - expected[key]) > 1e-4:
+            raise AssertionError(f"{key}: index {printed}, numpy {numpy_value}")
+    if f"**bundle_valid_taps:** {int(expected['bundle_valid_taps'])}" not in index:
+        raise AssertionError("bundle_valid_taps differs from the single-process run")
+    out["multi_host"] = {
+        "ranks": RANKS, "job_wall_s": job_wall, "single_process_job_wall_s": single_wall,
+        "rank_runs": [r["runs"] for r in ranks], "rank_devices": [r["device"] for r in ranks],
+        "launches": total,
+    }
+    log(f"multi_device (b) {RANKS} ranks on {[r['device'] for r in ranks]}: job {job_wall:.2f} s (two runs a rank), "
+        f"single-process job {single_wall:.2f} s; per rank cold/warm "
+        f"{[[round(x['wall_s'], 3) for x in r['runs']] for r in ranks]} s, engine "
+        f"{[[round(x['engine_s'], 3) for x in r['runs']] for r in ranks]} s, gathered "
+        f"{sum(r['runs'][0]['gather_bytes_sent'] for r in ranks)} bytes (sent by the ranks {[r['runs'][0]['gather_bytes_sent'] for r in ranks]}); "
+        "markdown, metrics and aggregates agree")
+    return out
+
+
 def check_modules(reached, banned_roots) -> None:
     """Every module of `reached` (under audio_analysis_tpu_torch) loaded,
     and no module under `banned_roots`."""
@@ -1512,6 +1749,12 @@ def main() -> int:
     plots = plots_phase(torch, cli_main, root, dev, counters, launches_by_path)
     phases["plots_s"] = time.perf_counter() - t0
     check_modules(("report.report", "report.bundle", "parallel.overlap"), ("jax", "audio_analysis_tpu"))
+
+    # 11. the mesh and the multi-host job
+    t0 = time.perf_counter()
+    multi = multi_device_phase(torch, root, dev, counters, launches_by_path, cuda_json)
+    phases["multi_device_s"] = time.perf_counter() - t0
+    check_modules(("engine.mesh", "engine.distributed"), ("jax", "audio_analysis_tpu"))
     log("phases " + json.dumps(phases))
 
     kernels = [
@@ -1531,6 +1774,7 @@ def main() -> int:
     print(json.dumps({"per_file": per_file}))
     print(json.dumps({"per_file_rest": rest}))
     print(json.dumps({"plots": plots}))
+    print(json.dumps({"multi_device": multi}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

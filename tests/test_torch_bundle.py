@@ -23,6 +23,7 @@ import pytest
 pytest.importorskip("jax")
 
 import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from audio_analysis_tpu.io.bundle import write_bundle  # noqa: E402
 from audio_analysis_tpu_torch.cli.analyse_cli import main as torch_cli_main  # noqa: E402
@@ -162,34 +163,35 @@ def test_cli_path_imports_neither_jax_nor_matplotlib(tmp_path):
     ],
 )
 def test_cli_refuses_flags_not_yet_ported(argv, flag):
-    """--multi-host and its coordinator flags are refused by name. The plot
-    paths that were refused here are ported now: `bundle` / `batch`
-    without --no-plots, with --tap-shard or --resume, reach the plot bundle
-    runner with those settings, and `watch --plots` the watcher with
-    plots on; `--plot-processes` on the paths that draw nothing (`bundle
+    """No flag is refused as "not yet ported" any more. `--multi-host`
+    reaches the multi-host report writer (one process alone: no
+    coordinator, no torchrun environment) on this process's device;
+    `--coordinator` without `--multi-host` is ignored, as the JAX CLI
+    ignores it. The plot paths: `bundle` / `batch` without --no-plots,
+    with --tap-shard or --resume, reach the plot bundle runner with those
+    settings, and `watch --plots` the watcher with plots on;
+    `--plot-processes` on the paths that draw nothing (`bundle
     --no-plots`, `watch` without `--plots`) is accepted and ignored, as
     the JAX CLI does."""
-    refused = flag in ("--multi-host", "--coordinator")
     if argv[0] == "watch":
         target = "audio_analysis_tpu_torch.report.watch.watch_bundle_runs"
+    elif flag == "--multi-host":
+        target = "audio_analysis_tpu_torch.engine.distributed.run_bundle_report_multi_host"
     elif "--no-plots" in argv:
         target = "audio_analysis_tpu_torch.cli.analyse_cli.run_bundle_report_engine"
     else:
         target = "audio_analysis_tpu_torch.report.bundle.run_bundle_report"
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE")}
     with mock.patch(target, return_value=Path("index.md")) as runner, \
-            mock.patch("audio_analysis_tpu_torch.io.materialize_bundle_view", return_value=Path("unused")):
-        if not refused:
-            torch_cli_main(argv + ["--device", "cpu"])
-            assert runner.call_count == 1
-            if argv[0] == "watch":
-                assert runner.call_args.args[1].plots == ("--plots" in argv)
-            if target.endswith(".run_bundle_report"):
-                settings = runner.call_args.kwargs["settings"]
-                assert settings.resume == ("--resume" in argv)
-                assert settings.tap_shard == ("0/2" if "--tap-shard" in argv else None)
-            return
-        with pytest.raises(SystemExit) as exc:
-            torch_cli_main(argv + ["--device", "cpu"])
-    message = str(exc.value.code)
-    assert "not yet ported" in message and flag in message
-    assert runner.call_count == 0
+            mock.patch("audio_analysis_tpu_torch.io.materialize_bundle_view", return_value=Path("unused")), \
+            mock.patch.dict(os.environ, env, clear=True):
+        torch_cli_main(argv + ["--device", "cpu"])
+    assert runner.call_count == 1
+    if argv[0] == "watch":
+        assert runner.call_args.args[1].plots == ("--plots" in argv)
+    if target.endswith(".run_bundle_report"):
+        settings = runner.call_args.kwargs["settings"]
+        assert settings.resume == ("--resume" in argv)
+        assert settings.tap_shard == ("0/2" if "--tap-shard" in argv else None)
+    if flag == "--multi-host":
+        assert runner.call_args.kwargs["devices"] == [torch.device("cpu")]

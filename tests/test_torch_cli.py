@@ -7,10 +7,9 @@ and `bundle --bands-decimate` end to end on the CPU against the JAX CLI.
   per-file subcommands (ir, zplane, decay, rt60bands, fr, filter,
   groupdelay, spectrogram, diffusion, waterfall, modalcloud, deconvolve)
   and of `report`, parses in the port's parser to the same destination
-  and value (so the same defaults), and is then either accepted, refused
-  by the JAX CLI's own argument validation with its message, or refused
-  as "not yet ported" by name (--multi-host and its coordinator flags,
-  `watch --plots`). The port adds only `--device`.
+  and value (so the same defaults), and is then either accepted or
+  refused by the JAX CLI's own argument validation with its message;
+  nothing is refused as "not yet ported". The port adds only `--device`.
 - Without CUDA every subcommand that touches the device exits before any
   side effect unless `--device cpu` is given.
 - bundle_metrics.json of `batch --no-plots` and of `bundle --no-plots
@@ -106,9 +105,6 @@ def test_port_parser_covers_the_jax_surface(command):
                 with pytest.raises(SystemExit) as jax_exc:
                     jax_cli.main(argv)
                 assert str(exc.code) == str(jax_exc.value.code), option
-                continue
-            refused = torch_cli._not_yet_ported(command, args)
-            assert refused is None or refused in action.option_strings, (option, refused)
 
 
 def test_port_parser_has_every_jax_subcommand():
@@ -125,8 +121,10 @@ def test_port_parser_has_every_jax_subcommand():
         ["bundle", "--input", "unused", "--no-plots", "--tap-shard", "0/2"],
         ["batch", "--inputs", "a.wav", "--output", "unused", "--compare", "prev"],
         ["batch", "--inputs", "a.wav", "--output", "unused", "--no-plots", "--resume"],
+        ["bundle", "--input", "unused", "--multi-host", "--coordinator", "127.0.0.1:1", "--process-id", "0"],
     ],
-    ids=["bundle-compare", "bundle-resume", "bundle-tap-shard", "batch-compare", "batch-resume"],
+    ids=["bundle-compare", "bundle-resume", "bundle-tap-shard", "batch-compare", "batch-resume",
+         "multi-host-coordinator"],
 )
 def test_argument_validation_messages_match_jax(argv, tmp_path):
     argv = [str(tmp_path / a) if a == "unused" else a for a in argv]

@@ -1,7 +1,8 @@
 """GPU-only copies of the kernel comparisons: each CUDA kernel of the port
 against its plain torch version on the card, the engine on the card
 against the engine on the CPU, the per-file analyses on the card against
-the same call on the CPU, the AR Gram in float32 on the card against a
+the same call on the CPU, a mesh of two shards on the card against the
+single-device run (bit-equal), the AR Gram in float32 on the card against a
 float64 Gram on the card, Karplus-Strong on the card against the CPU, the
 report suite's render jobs with the kernels against the plain versions on
 the card (and its markdown against the golden report), and the
@@ -37,7 +38,13 @@ from _summary_parity import assert_summaries_agree
 from audio_analysis_tpu_torch import signals
 from audio_analysis_tpu_torch.analyses import decay, filterplot, modalcloud, rt60bands, spectrogram, zplane
 from audio_analysis_tpu_torch.analyses._common import FileDsp
-from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
+from audio_analysis_tpu_torch.engine import (
+    EngineConfig,
+    analyze_batch,
+    analyze_batch_sharded,
+    analyze_bundle_pipelined,
+    make_mesh,
+)
 from audio_analysis_tpu_torch.engine.batch import band_masks
 from audio_analysis_tpu_torch.ops import display, edc, fftmask, spectral, stft
 from test_reference_parity import TOLERANCES
@@ -187,6 +194,30 @@ def test_engine_on_card_matches_cpu(dev):
         else:
             rtol = 1e-2 if key in ("modal_rt60", "modal_r2") else 1e-3
             np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-4, equal_nan=True, err_msg=key)
+
+
+def test_mesh_on_card_equals_single_device(dev):
+    """Two shards on one card: each runs the batch a single-device chunk
+    would, through both kernels (K1 and K2 twice a shard), so the sharded
+    results are bit-equal to the single-device run's, through
+    analyze_batch_sharded and the pipelined entry alike."""
+    rng = np.random.default_rng(4)
+    n = 1 << 16
+    t = np.arange(n) / 48_000
+    x = np.zeros((4, 2, n), np.float32)
+    x[:, :, 256:] = 0.05 * rng.standard_normal((4, 2, n - 256)) * 10.0 ** (-3.0 * t[: n - 256] / 1.2)
+    x[:, :, 256] = 0.9
+    lengths = np.array([n, n - 9000, n - 100, n - 4096], np.int32)
+    mesh = make_mesh(devices=[dev, dev])
+    single = analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, EngineConfig(), 2, device=dev)
+    edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
+    piped = analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, EngineConfig(), 2, mesh=mesh)
+    assert (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches) == (4, 4)
+    sharded = analyze_batch_sharded(mesh, x, lengths, EngineConfig())
+    assert float(sharded["bundle_median_t30"]) == pytest.approx(np.median(single["t30_rt60"][single["t30_ok"]]), rel=1e-6)
+    for key, value in single.items():
+        np.testing.assert_array_equal(piped[key], value, err_msg=key)
+        np.testing.assert_array_equal(sharded[key].cpu().numpy(), value, err_msg=key)
 
 
 @pytest.mark.parametrize("band_mode", ["three", "third"])

@@ -1,7 +1,8 @@
 """The port's fused engine (audio_analysis_tpu_torch.engine.analyze_batch)
 against audio_analysis_tpu.engine.analyze_batch on the CPU, in the three
 band modes and with the on-device mono downmix, plus the port's host
-entries (flat packing, pipelined chunking, the device audio cache).
+entries (flat packing, pipelined chunking, the device audio cache, a mesh
+of CPU shards).
 
 Inputs are the well-conditioned taps of tests/parity_matrix.py (modal and
 damped IRs) and a decaying-noise tap (rt60 1.2 s, as in bench.py), so fits
@@ -46,6 +47,7 @@ from audio_analysis_tpu_torch.engine import (  # noqa: E402
     analyze_bundle,
     analyze_bundle_pipelined,
     config_from_jax,
+    make_mesh,
     unpack_flat,
 )
 from parity_matrix import make_damped_ir, make_modal_ir  # noqa: E402
@@ -258,6 +260,18 @@ def test_pipelined_chunks_match_one_batch(prefetch):
 
 
 def test_not_yet_ported_options_raise():
-    pcm, lengths = _small_bundle(1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        analyze_bundle_pipelined(lambda lo, hi: pcm, lengths, SMALL_N, SMALL_CFG, mesh=object(), device="cpu")
+    """`mesh=` is ported: 5 taps on a mesh of 2 CPU shards at 2 taps a
+    shard (a padded final chunk) equal one analyze_batch over all taps."""
+    pcm, lengths = _small_bundle(5)
+    one = {
+        k: v.numpy()
+        for k, v in analyze_batch(torch.from_numpy(pcm), torch.from_numpy(lengths), SMALL_CFG).items()
+    }
+    mesh = make_mesh(2, platform="cpu")
+    out = analyze_bundle_pipelined(lambda lo, hi: pcm[lo:hi], lengths, SMALL_N, SMALL_CFG, 2, mesh=mesh)
+    whole = analyze_bundle(pcm, lengths, SMALL_CFG, chunk_taps=1, mesh=mesh)
+    for res in (out, whole):
+        assert sorted(res) == sorted(one)
+        for key in one:
+            assert res[key].dtype == one[key].dtype and res[key].shape == one[key].shape, key
+            np.testing.assert_allclose(res[key], one[key], rtol=1e-6, atol=1e-6, equal_nan=True, err_msg=key)
