@@ -25,6 +25,9 @@ TPU kernel with a hand-written CUDA kernel for Hopper (sm_90a):
   io/       WAV and capture-bundle I/O (numpy, scipy, and a ctypes binding of
             the repo's C++ decoder cpp/audioio.cpp)
   csrc/     CUDA sources, built with nvcc at first use (_build.py)
+  oracle/   the float64 NumPy oracle (a copy of the JAX package's): the
+            reference's formulas, the ground truth of the tests and of
+            chip_smoke.py; numpy only
 
 Nothing here imports jax or the JAX package audio_analysis_tpu; matplotlib
 is imported only when a figure is drawn.

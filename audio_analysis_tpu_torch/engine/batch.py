@@ -23,7 +23,7 @@ import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,10 @@ from audio_analysis_tpu_torch.ops.common import (
 )
 
 _NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32, torch.float32: np.float32}
+# a frame block's plane per tap group (frame_tap_groups): at the report
+# defaults a chunk of 8 stereo taps of 2^20 samples counts 0.54 GB (shared
+# STFT) and 1.07 GB (modal cloud), one group each, as do 16-tap chunks
+FRAME_PLANE_BUDGET_BYTES = 4 << 30
 
 
 def _band_definitions(config: EngineConfig):
@@ -194,6 +198,61 @@ def _bands(samples, start, length, tables, config: EngineConfig) -> Dict[str, to
     }
 
 
+def frame_tap_groups(taps: int, channels: int, n: int, n_fft: int, hop: int) -> List[Tuple[int, int]]:
+    """[lo, hi) tap ranges of one frame block (the shared STFT or the modal
+    cloud). Its per-frame planes are the device-memory high-water mark: the
+    JAX engine maps them over taps one at a time; the port runs a chunk's
+    taps in one launch while their plane (a complex value per frame and
+    bin, the plain route's spectrum) stays within FRAME_PLANE_BUDGET_BYTES,
+    and splits the chunk by taps past it."""
+    per_tap = channels * stft.num_frames_static(n, n_fft, hop) * (n_fft + 2) * 4
+    step = max(1, FRAME_PLANE_BUDGET_BYTES // max(per_tap, 1))
+    return [(lo, min(taps, lo + step)) for lo in range(0, taps, step)]
+
+
+def _modal_fits(samples, length, tables, config: EngineConfig):
+    """(reliable, rt60, r2) of every modal log bin, (B, C, bins) each: the
+    modal STFT binned in linear magnitude, each bin's dB curve fitted over
+    the T30 range below its peak."""
+    _bins, _nonempty, k_out = modal_tables(config)
+    stm = stft.stft_magnitude(
+        samples, length, config.modal_n_fft, config.hop_length, True,
+        10.0 ** (config.magnitude_floor_db / 20.0), k_out,
+    )
+    # bin means in linear magnitude (one fp32 matmul), dB once at the end
+    binned = torch.matmul(stm.mag, tables["modal_bins_t"])  # (B, C, T, bins)
+    curves_db = torch.transpose(20.0 * torch.log10(torch.clamp(binned, min=1e-30)), -1, -2)
+    del binned
+    t_total = curves_db.shape[-1]
+    frame_valid = torch.arange(t_total, device=samples.device) < stm.num_frames[..., None]
+    curves_db = torch.where(frame_valid[..., None, :], curves_db, config.magnitude_floor_db)
+    peak = curves_db.amax(dim=-1, keepdim=True)
+    rel = curves_db - peak
+    frame_len = stm.num_frames[..., None].expand(rel.shape[:-1])
+    fit = dbfit.fit_decay_slope_over_db_range(
+        rel,
+        frame_len,
+        config.t30_range_db,
+        config.fit_lower_limit_db,
+        config.sample_rate_hz / config.hop_length,
+        min_points=config.modal_min_fit_points,
+    )
+    reliable = (
+        fit.ok
+        & tables["modal_nonempty"]
+        & ((peak[..., 0] - config.magnitude_floor_db) >= config.modal_min_peak_db_above_floor)
+    )
+    return reliable, fit.rt60_seconds, fit.r_squared
+
+
+def _require_frames(n: int, n_fft: int, hop: int, name: str) -> None:
+    """A frame block needs at least one frame of the padded signal: the JAX
+    engine raises a ValueError there (its per-row max over no frames), and
+    so does the port, on every device and before any launch."""
+    if stft.num_frames_static(n, n_fft, hop) == 0:
+        raise ValueError(f"{name}={n_fft} is longer than the {n}-sample signal: the STFT has no frame")
+
+
 def analyze_batch(
     samples: torch.Tensor,  # (B, C, N) float32 or int16
     lengths: torch.Tensor,  # (B,) int32
@@ -208,6 +267,10 @@ def analyze_batch(
     if config.downmix_to_mono and samples.shape[1] > 1:
         samples = samples.mean(dim=1, keepdim=True)
     b, c, n = samples.shape
+    if config.run_stft:
+        _require_frames(n, config.n_fft, config.hop_length, "n_fft")
+    if config.run_modal:
+        _require_frames(n, config.modal_n_fft, config.hop_length, "modal_n_fft")
     device = samples.device
     lengths = lengths.to(torch.int32)
     lengths_bc = lengths[:, None].expand(b, c)
@@ -288,53 +351,33 @@ def analyze_batch(
 
     # ---- shared STFT: only the per-row max and the frame count are used ----
     if config.run_stft:
-        st = stft.stft_magnitude(
-            aligned.samples, aligned.length, config.n_fft, config.hop_length, True, floor_lin
-        )
-        out["stft_num_frames"] = st.num_frames
-        # max in linear magnitude, dB once on the (B, C) result
-        global_max_lin = st.mag.amax(dim=(-2, -1))
-        out["stft_global_max_db"] = 20.0 * torch.log10(torch.clamp(global_max_lin, min=floor_lin))
-        del st
+        num_frames, global_max_lin = [], []
+        for lo, hi in frame_tap_groups(b, c, n, config.n_fft, config.hop_length):
+            st = stft.stft_magnitude(
+                aligned.samples[lo:hi], aligned.length[lo:hi], config.n_fft, config.hop_length, True, floor_lin
+            )
+            num_frames.append(st.num_frames)
+            # max in linear magnitude, dB once on the (B, C) result
+            global_max_lin.append(st.mag.amax(dim=(-2, -1)))
+            del st
+        out["stft_num_frames"] = torch.cat(num_frames)
+        out["stft_global_max_db"] = 20.0 * torch.log10(torch.clamp(torch.cat(global_max_lin), min=floor_lin))
 
     # ---- modal cloud ----
     if config.run_modal:
-        _bins, _nonempty, k_out = modal_tables(config)
-        stm = stft.stft_magnitude(
-            aligned.samples, aligned.length, config.modal_n_fft, config.hop_length, True,
-            floor_lin, k_out,
-        )
-        # bin means in linear magnitude (one fp32 matmul), dB once at the end
-        binned = torch.matmul(stm.mag, tables["modal_bins_t"])  # (B, C, T, bins)
-        curves_db = torch.transpose(20.0 * torch.log10(torch.clamp(binned, min=1e-30)), -1, -2)
-        del binned
-        t_total = curves_db.shape[-1]
-        frame_valid = torch.arange(t_total, device=device) < stm.num_frames[..., None]
-        curves_db = torch.where(frame_valid[..., None, :], curves_db, config.magnitude_floor_db)
-        peak = curves_db.amax(dim=-1, keepdim=True)
-        rel = curves_db - peak
-        frame_len = stm.num_frames[..., None].expand(rel.shape[:-1])
-        fit = dbfit.fit_decay_slope_over_db_range(
-            rel,
-            frame_len,
-            config.t30_range_db,
-            config.fit_lower_limit_db,
-            sr / config.hop_length,
-            min_points=config.modal_min_fit_points,
-        )
-        reliable = (
-            fit.ok
-            & tables["modal_nonempty"]
-            & ((peak[..., 0] - config.magnitude_floor_db) >= config.modal_min_peak_db_above_floor)
-        )
-        rt60 = torch.where(reliable, fit.rt60_seconds, math.nan)
+        groups = [
+            _modal_fits(aligned.samples[lo:hi], aligned.length[lo:hi], tables, config)
+            for lo, hi in frame_tap_groups(b, c, n, config.modal_n_fft, config.hop_length)
+        ]
+        reliable = torch.cat([g[0] for g in groups])
+        rt60 = torch.where(reliable, torch.cat([g[1] for g in groups]), math.nan)
         out["modal_count"] = reliable.sum(dim=-1, dtype=torch.int32)
         out["modal_median_rt60"] = nanmedian(rt60)
         out["modal_p90_rt60"] = torch.nanquantile(rt60, 0.9, dim=-1)
         out["modal_max_rt60"] = nanmax(rt60)
         out["modal_rt60"] = rt60  # (B, C, bins) for scatter plots
-        out["modal_r2"] = torch.where(reliable, fit.r_squared, math.nan)
-        del stm, curves_db, rel
+        out["modal_r2"] = torch.where(reliable, torch.cat([g[2] for g in groups]), math.nan)
+        del groups
 
     # ---- diffusion (report defaults) ----
     if config.run_diffusion:

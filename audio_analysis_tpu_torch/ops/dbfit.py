@@ -2,12 +2,19 @@
 Decay-curve metrology (audio_analysis_tpu/ops/dbfit.py): interpolated dB
 crossings and masked least-squares line fits over dB ranges (slope, r^2,
 RT60 = -60/slope), batched over any leading dims.
+
+The time axis is index x (1/sr), the reciprocal rounded to float32, not
+index / sr: XLA rewrites the JAX package's division by the static rate as
+that product, and the quotients differ by one ulp at about an eighth of
+the indices. A fit over a few samples far into a curve (t - mean(t) a few
+ulps of t) moves by 1e-4 relative with it.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from audio_analysis_tpu_torch.ops.common import bool_valid_mask
@@ -29,6 +36,11 @@ class DecayFit(NamedTuple):
     ok: torch.Tensor  # bool: valid fit (range found, >= min points, slope < 0)
 
 
+def _seconds_per_sample(sample_rate_hz: float) -> float:
+    """1/sample_rate_hz rounded to float32 (exact as a Python float)."""
+    return float(np.float32(1.0) / np.float32(sample_rate_hz))
+
+
 def crossing_time(
     curve_db: torch.Tensor,
     length: torch.Tensor,
@@ -37,7 +49,8 @@ def crossing_time(
 ) -> Crossing:
     """
     First time the curve reaches <= target_db, linearly interpolated between
-    the bracketing samples (decay.py:173-199). Time axis is index/sr.
+    the bracketing samples (decay.py:173-199). Time axis is index/sr (as
+    index x _seconds_per_sample).
     """
     n = curve_db.shape[-1]
     valid = bool_valid_mask(n, length)
@@ -50,8 +63,9 @@ def crossing_time(
     y0 = torch.gather(curve_db, -1, prev[..., None])[..., 0]
     y1 = torch.gather(curve_db, -1, idx[..., None])[..., 0]
 
-    t0 = prev.to(torch.float32) / sample_rate_hz
-    t1 = idx.to(torch.float32) / sample_rate_hz
+    dt = _seconds_per_sample(sample_rate_hz)
+    t0 = prev.to(torch.float32) * dt
+    t1 = idx.to(torch.float32) * dt
     same = y1 == y0
     frac = torch.clamp((float(target_db) - y0) / torch.where(same, 1.0, y1 - y0), 0.0, 1.0)
     t_interp = torch.where(same, t1, t0 + frac * (t1 - t0))
@@ -79,7 +93,7 @@ def fit_decay_slope_over_db_range(
     end = crossing_time(curve_db, length, effective_low_db, sample_rate_hz)
 
     n = curve_db.shape[-1]
-    t = torch.arange(n, dtype=torch.float32, device=curve_db.device) / sample_rate_hz
+    t = torch.arange(n, dtype=torch.float32, device=curve_db.device) * _seconds_per_sample(sample_rate_hz)
     valid = bool_valid_mask(n, length)
     window = (
         valid

@@ -7,7 +7,11 @@ over leading dims.
 `schroeder_edc_db` is the wrapper of kernel K1 (csrc/edc.cu, the Hopper
 counterpart of the TPU kernel ops/pallas_kernels.py:schroeder_edc_db_pallas):
 on a CUDA tensor it launches the kernel, on a CPU tensor it runs the plain
-torch version `schroeder_edc_db_plain` beside it.
+torch version `schroeder_edc_db_plain` beside it. Both are held to the
+float64 oracle's `oracle.schroeder_edc_db` (with trim_to_peak off) over
+rows, lengths, eps and floors: tests/test_torch_oracle.py and
+tests/test_torch_fuzz.py on the CPU, chip_smoke.py's fuzz phase and
+tests/test_torch_cuda.py on the card.
 """
 
 from __future__ import annotations

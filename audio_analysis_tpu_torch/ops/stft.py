@@ -13,7 +13,11 @@ abs). K2 takes the power-of-two n_fft from 256 to 16384; any other n_fft
 through `stft_magnitude_plain` on the tensor's own device. That route is
 chosen from n_fft alone, before any launch; a failure of K2 at one of its
 own sizes raises. The JAX package's matmul FFT (ops/mxfft.py) exists for
-the TPU's matrix unit and has no counterpart here.
+the TPU's matrix unit and has no counterpart here. `stft_magnitude_plain`
+and K2 are held to the float64 oracle's `oracle.stft_magnitude_db` (its
+magnitude before the dB step) over every n_fft, hop, k_out, floor and
+window: tests/test_torch_oracle.py and tests/test_torch_fuzz.py on the CPU,
+chip_smoke.py's fuzz phase and tests/test_torch_cuda.py on the card.
 
 `stft_mag_db` is the per-file analyses' dB plane: K2 with the dB floor as
 its linear floor and every bin, then 20 log10, invalid frames at the floor.
@@ -103,7 +107,11 @@ def stft_magnitude_plain(
     k_out: Optional[int] = None,
 ) -> torch.Tensor:
     """(..., N) -> (..., T, k_out): floored |rfft(window * frame)|, frames
-    past the valid length zeroed."""
+    past the valid length zeroed. With no frame (N < n_fft) the plane is
+    empty, as K2's."""
+    if num_frames_static(x.shape[-1], n_fft, hop) == 0:
+        k = n_fft // 2 + 1 if k_out is None else max(0, min(int(k_out), n_fft // 2 + 1))
+        return x.new_zeros(x.shape[:-1] + (0, k))
     frames = frame_signal(x, n_fft, hop) * _window(n_fft, use_hann_window, x.device)
     mag = torch.abs(torch.fft.rfft(frames, dim=-1))
     if k_out is not None:

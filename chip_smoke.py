@@ -122,11 +122,36 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      against numpy's median and mean of its per-tap values; the job's wall
      beside a single-process `bundle --no-plots` job's.
 
+ 12. the settings fuzz (`fuzz` line, outputs under build/chip_smoke_fuzz/),
+     from one numpy Generator seeded by --fuzz-seed (default FUZZ_SEED; the
+     seed is printed first, and each draw before it runs): K1 at 24 drawn
+     shapes (rows 1-64, N from 1 to 2^20, Ns off the kernel's tile, lengths
+     with 0, 1 and N among them, drawn eps and a floor that may be -inf)
+     against its plain version under phase 2's rules and, on one or two
+     rows a draw, against the port's float64 oracle (oracle.schroeder_edc_db)
+     within 0.02 dB wherever the oracle is at or above -80 dB; K2 at every
+     instance n_fft 256..16384 and five more drawn ones (drawn hops that do
+     and do not divide n_fft, k_out, floor, window, ragged lengths, one draw
+     with no frame) against its plain version and, on one row, against the
+     oracle's magnitude (oracle.stft_magnitude_db), each within 1e-5 of the
+     reference's largest value, and no K2 launch at n_fft 128, 3000 and
+     20000; the fixed draw of each fuzz finding and five drawn EngineConfigs
+     through `analyze_bundle_pipelined` on the bundle's first 8 taps, the
+     kernel run against the plain run under phase 5's limits with
+     tests/_engine_parity.py's conditioning runs, K1 / K2 launches exactly
+     as the config implies, and a frame block longer than the signal
+     raising a ValueError before any launch; ten drawn flag sets of decay,
+     rt60bands, spectrogram, waterfall and modalcloud through the CLI entry
+     on the bundle's first tap, the kernel run against the plain run
+     (phase 8's tolerances, the same JSON keys), launches exact. A failing
+     draw raises; `python3 chip_smoke.py --fuzz-only --fuzz-seed S` reruns
+     phases 1, 3 and 12 alone with the printed seed.
+
 Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
 package (audio_analysis_tpu). The last lines are the per-file JSON, the
 phase-9 (`per_file_rest`) JSON, the phase-10 (`plots`) JSON, the phase-11
-(`multi_device`) JSON, the kernels' JSON, the card's name and power limit,
-and {"ok": true, "device": {...}}.
+(`multi_device`) JSON, the phase-12 (`fuzz`) JSON, the kernels' JSON, the
+card's name and power limit, and {"ok": true, "device": {...}}.
 There is no CPU fallback: without CUDA the script exits non-zero at once.
 """
 
@@ -1615,6 +1640,402 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
     return out
 
 
+# ---------------------------------------------------------------- fuzz ----
+
+FUZZ_SEED = 10
+K2_INSTANCES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+FUZZ_K1_DRAWS = 24
+FUZZ_K2_EXTRA_DRAWS = 5
+FUZZ_ENGINE_DRAWS = 5
+FUZZ_TAPS = 8
+# K1 against the float64 oracle: tests/test_edc_precision.py's 0.02 dB
+# wherever the oracle's curve is at or above -80 dB; K2 against the
+# oracle's magnitude, and K2 against its plain version: 1e-5 of the
+# reference's largest value (phase 2)
+EDC_DB_TOL = 0.02
+STFT_REL_TOL = 1e-5
+# fuzz finding (repaired): a fit's time axis is index x float32(1/rate), as
+# XLA computes the JAX package's index / rate (a 9-point band EDT fit at
+# t = 0.66 s moved by 1.2e-4 relative); tests/test_torch_fuzz_engine.py
+# TIME_AXIS_DRAW, on the bundle
+TIME_AXIS_FIELDS = {
+    "trim_to_peak": False, "ignore_leading_seconds": 0.02, "edc_epsilon": 1e-12,
+    "t20_range_db": (-1.9, -22.75), "t30_range_db": (-2.6, -41.64), "edt_range_db": (-1.9, -6.9),
+    "band_mode": "third", "band_f_min_hz": 125.0, "band_f_max_hz": 8000.0, "transition_width_octaves": 0.5,
+    "f_min_hz": 100.0, "f_max_hz": 8000.0, "n_fft": 2048, "hop_length": 57, "modal_n_fft": 2048,
+    "run_group_delay": False, "run_stft": False, "run_modal": False,
+}
+
+# fuzz finding (repaired): the frame blocks ran a chunk's taps in one plane
+# (the JAX engine maps them per tap); n_fft 200, hop 25, modal_n_fft 12000
+# asked for 29.7 GiB. Now split by taps past the engine's budget: here the
+# modal cloud's 4.2 GB a tap runs one tap a group, 8 K2 launches
+FRAME_PLANE_FIELDS = {"hop_length": 32, "modal_n_fft": 16384, "run_bands": False, "run_stft": False}
+
+
+def fuzz_log(check: str, i: int, seed: int, draw) -> None:
+    """The draw, printed before it runs: a failure raises right after it."""
+    log(f"fuzz {check} draw {i} (seed {seed}): {draw}")
+
+
+def fuzz_k1(torch, edc, oracle, dev, rng, seed: int) -> dict:
+    """K1 at drawn shapes and settings against its plain version on the card
+    (phase 2's rules) and, on one or two rows, against the float64 oracle."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch import _build
+
+    tile = _build.library().aa_edc_tile_size()
+    sizes = [1, 2, 3, 100, tile - 1, tile + 1, 3 * tile + 5, (1 << 16) - 3, (1 << 18) + 7, N - 3 * 4096 + 1, N]
+    worst_plain = worst_oracle = 0.0
+    for i in range(FUZZ_K1_DRAWS):
+        n = sizes[i] if i < len(sizes) else int(rng.choice(sizes))
+        rows = int(rng.integers(1, 65)) if n < N else int(rng.integers(1, 17))
+        lengths = rng.integers(0, n + 1, rows)
+        lengths[: min(rows, 3)] = [n, 0, 1][: min(rows, 3)]
+        eps = float(rng.choice([1e-30, 1e-20, 1e-12, 1e-6]))
+        floor = float(rng.choice([-120.0, -90.0, -60.0, -math.inf]))
+        fuzz_log("k1", i, seed, {"rows": rows, "n": n, "lengths": lengths[:6].tolist(), "eps": eps, "floor_db": floor})
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+        tau = 5.0 + 4.0 * n * torch.rand(rows, 1, generator=g, device=dev)
+        t = torch.arange(n, device=dev, dtype=torch.float32)
+        lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        x = torch.randn(rows, n, generator=g, device=dev) * torch.exp(-t / tau)
+        x = torch.where(t[None, :] < lens[:, None], x, 0.0)
+        got = edc.schroeder_edc_db_cuda(x, lens, eps, floor)
+        ref = edc.schroeder_edc_db_plain(x, lens, eps, floor)
+        past = t[None, :] >= lens[:, None]
+        if not (bool((got[past] == 0).all()) and bool((got[lens > 0, 0] == 0).all())):
+            raise AssertionError(f"K1 fuzz draw {i}: not 0 past length or not 0 dB at index 0")
+        usable = (ref > -100.0) & ~past
+        err = (got - ref).abs()[usable].max().item() if bool(usable.any()) else 0.0
+        if not err <= EDC_DB_TOL:
+            raise AssertionError(f"K1 fuzz draw {i}: {err} dB from the plain version")
+        worst_plain = max(worst_plain, err / EDC_DB_TOL)
+        for row in [r for r in range(rows) if lengths[r] >= 4][:2]:
+            length = int(lengths[row])
+            _, ref64, _ = oracle.schroeder_edc_db(x[row, :length].double().cpu().numpy(), SR, False, 0.0, eps, floor)
+            region = ref64 >= -80.0
+            err64 = float(np.abs(got[row, :length].cpu().numpy()[region] - ref64[region]).max()) if region.any() else 0.0
+            if not err64 <= EDC_DB_TOL:
+                raise AssertionError(f"K1 fuzz draw {i} row {row}: {err64} dB from the float64 oracle")
+            worst_oracle = max(worst_oracle, err64 / EDC_DB_TOL)
+    return {"draws": FUZZ_K1_DRAWS, "worst_ratio_vs_plain": worst_plain, "worst_ratio_vs_oracle": worst_oracle}
+
+
+def fuzz_k2(torch, stft, oracle, dev, rng, seed: int) -> dict:
+    """K2 at every instance n_fft and more drawn ones, with drawn hops,
+    k_out, floor, window and ragged lengths, against its plain version on
+    the card and, on one row, against the float64 oracle's magnitude; one
+    draw has no frame (N < n_fft). The dispatching wrapper at n_fft outside
+    K2's range launches nothing."""
+    import numpy as np
+
+    sizes = list(K2_INSTANCES) + [int(rng.choice(K2_INSTANCES)) for _ in range(FUZZ_K2_EXTRA_DRAWS)]
+    instances = set()
+    worst_plain = worst_oracle = 0.0
+    for i, n_fft in enumerate(sizes):
+        hop = n_fft // int(rng.choice([1, 2, 4, 8])) if rng.random() < 0.5 else int(rng.integers(n_fft // 8, n_fft + 1))
+        n = n_fft - 1 if i == len(K2_INSTANCES) else n_fft + int(rng.integers(0, 200)) * hop + int(rng.integers(0, hop))
+        rows = int(rng.integers(1, 17))
+        lengths = rng.integers(0, n + 1, rows)
+        lengths[: min(rows, 5)] = [n, 0, 1, n_fft - 1, min(n, n_fft)][: min(rows, 5)]
+        f_bins = n_fft // 2 + 1
+        k_out = [None, f_bins, int(rng.integers(1, f_bins + 1))][int(rng.integers(3))]
+        floor_db = float(rng.choice([-200.0, -120.0, -60.0]))
+        hann = bool(rng.random() < 0.7)
+        fuzz_log("k2", i, seed, {"n_fft": n_fft, "hop": hop, "n": n, "rows": rows, "lengths": lengths[:6].tolist(),
+                                 "k_out": k_out, "floor_db": floor_db, "hann": hann})
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+        t = torch.arange(n, device=dev, dtype=torch.float32)
+        lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+        x = torch.randn(rows, n, generator=g, device=dev) * torch.exp(-t / (0.5 * n + 1.0))
+        x = torch.where(t[None, :] < lens[:, None], x, 0.0)
+        floor_lin = 10.0 ** (floor_db / 20.0)
+        before = stft.STFT_KERNEL.launches
+        got = stft.stft_magnitude_cuda(x, lens, n_fft, hop, hann, floor_lin, k_out)
+        if stft.STFT_KERNEL.launches > before:
+            instances.add(n_fft)
+        ref = stft.stft_magnitude_plain(x, lens, n_fft, hop, hann, floor_lin, k_out)
+        if got.shape != ref.shape:
+            raise AssertionError(f"K2 fuzz draw {i}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+        if ref.numel():
+            rel = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            if not rel < STFT_REL_TOL:
+                raise AssertionError(f"K2 fuzz draw {i}: {rel} of the plain version's largest value")
+            worst_plain = max(worst_plain, rel / STFT_REL_TOL)
+        valid = [stft.num_frames_static(int(length), n_fft, hop) for length in lengths]
+        row = int(np.argmax(valid))
+        if valid[row]:
+            length = int(lengths[row])
+            _, _, ref_db = oracle.stft_magnitude_db(x[row, :length].double().cpu().numpy(), SR, n_fft, hop, hann, floor_db)
+            k = f_bins if k_out is None else k_out
+            ref64 = 10.0 ** (ref_db[:k].T / 20.0)
+            rel = float(np.abs(got[row, : valid[row]].cpu().numpy() - ref64).max() / ref64.max())
+            if not rel < STFT_REL_TOL:
+                raise AssertionError(f"K2 fuzz draw {i} row {row}: {rel} of the oracle's largest value")
+            worst_oracle = max(worst_oracle, rel / STFT_REL_TOL)
+    if instances != set(K2_INSTANCES):
+        raise AssertionError(f"K2 instances launched {sorted(instances)}, expected {list(K2_INSTANCES)}")
+    outside = {}
+    for n_fft in (128, 3000, 20000):
+        x = torch.randn(2, 3 * n_fft, device=dev)
+        lens = torch.tensor([3 * n_fft, 2 * n_fft], dtype=torch.int32, device=dev)
+        before = stft.STFT_KERNEL.launches
+        got = stft.stft_magnitude(x, lens, n_fft, 333).mag
+        outside[n_fft] = stft.STFT_KERNEL.launches - before
+        if outside[n_fft] or not torch.equal(got, stft.stft_magnitude_plain(x, lens, n_fft, 333)):
+            raise AssertionError(f"K2 at n_fft {n_fft}: {outside[n_fft]} launches, or not the plain version")
+    return {"draws": len(sizes), "worst_ratio_vs_plain": worst_plain, "worst_ratio_vs_oracle": worst_oracle,
+            "instances": sorted(instances), "launches_outside_range": outside}
+
+
+def draw_engine_fields(rng) -> dict:
+    """An EngineConfig's fields over tests/test_torch_fuzz_engine.py's
+    space (n_fft up to 16384 on the 2^20-sample bundle)."""
+    def pick(*values):
+        return values[int(rng.integers(len(values)))]
+
+    def n_fft():
+        return pick(*K2_INSTANCES) if rng.random() < 0.6 else pick(128, 200, 1000, 3000, 5000, 12000)
+
+    def db_range(high, span):
+        hi = round(float(rng.uniform(*high)), 2)
+        return (hi, round(hi - float(rng.uniform(*span)), 2))
+
+    size = n_fft()
+    hop = size // pick(1, 2, 4, 8) if rng.random() < 0.5 else int(rng.integers(16, size + 1))
+    fields = {
+        "sample_rate_hz": pick(48_000, 44_100), "trim_to_peak": bool(rng.random() < 0.5),
+        "ignore_leading_seconds": pick(0.0, 0.001, 0.01, 0.02), "edc_floor_db": pick(-150.0, -120.0, -90.0, -70.0),
+        "edc_epsilon": pick(1e-30, 1e-20, 1e-12), "fit_lower_limit_db": pick(-95.0, -80.0, -60.0, -50.0),
+        "t20_range_db": db_range((-10.0, 0.0), (10.0, 30.0)), "t30_range_db": db_range((-10.0, -2.0), (20.0, 40.0)),
+        "edt_range_db": db_range((-2.0, 0.0), (5.0, 15.0)), "band_mode": pick("three", "octave", "third"),
+        "low_upper_hz": pick(150.0, 250.0, 400.0), "mid_center_hz": pick(700.0, 1000.0, 1500.0),
+        "mid_width_octaves": pick(1.0, 2.0, 3.0), "high_lower_hz": pick(2500.0, 4000.0, 6000.0),
+        "band_f_min_hz": pick(31.5, 63.0, 125.0), "band_f_max_hz": pick(4000.0, 8000.0, 16000.0),
+        "transition_width_octaves": pick(1 / 12, 1 / 6, 0.5, 1.0), "bands_decimate": bool(rng.random() < 0.5),
+        "f_min_hz": pick(10.0, 20.0, 100.0), "f_max_hz": pick(8000.0, 20000.0, 30000.0),
+        "magnitude_floor_db": pick(-140.0, -120.0, -100.0), "n_fft": size, "hop_length": hop,
+        "modal_n_fft": n_fft(), "modal_log_bins_per_octave": pick(6, 12, 24, 48), "modal_min_bins": pick(4, 24, 64),
+        "modal_min_fit_points": pick(4, 10, 16), "modal_min_peak_db_above_floor": pick(0.0, 20.0, 40.0),
+        "modal_trim_bins": bool(rng.random() < 0.5), "diffusion_window_seconds": pick(0.01, 0.02, 0.05),
+        "diffusion_hop_seconds": pick(0.005, 0.013, 0.05), "diffusion_max_lag_ms": pick(0.5, 1.5, 5.0),
+        "echo_density_threshold_rms": pick(0.5, 1.0, 2.0), "downmix_to_mono": bool(rng.random() < 0.5),
+    }
+    fields.update({f"run_{b}": bool(rng.random() < 0.7) for b in ("bands", "fr", "group_delay", "stft", "modal", "diffusion")})
+    return fields
+
+
+def expected_engine_launches(cfg, taps: int, n: int) -> tuple:
+    """(K1, K2) launches of one chunk of `taps` taps: the broadband EDC,
+    then with the bands one EDC per decimation group (one group at full
+    rate), per tap in octave and third-octave mode; K2 for the shared STFT
+    and for the modal cloud where K2 has the block's n_fft, once per tap
+    group: as many taps a group as keep the block's complex frame plane
+    within the engine's FRAME_PLANE_BUDGET_BYTES."""
+    from audio_analysis_tpu_torch.engine.batch import FRAME_PLANE_BUDGET_BYTES, band_masks
+    from audio_analysis_tpu_torch.ops import fftmask, stft
+
+    k1 = 1
+    if cfg.run_bands:
+        masks = band_masks(cfg, n)
+        factors = fftmask.band_decimation_factors(masks, n) if cfg.bands_decimate else (1,)
+        groups = len(set(factors)) if max(factors) > 1 else 1
+        k1 += groups * (taps if masks.shape[0] > 3 else 1)
+    channels = 1 if cfg.downmix_to_mono else 2
+    k2 = 0
+    for on, n_fft in ((cfg.run_stft, cfg.n_fft), (cfg.run_modal, cfg.modal_n_fft)):
+        if on and stft.kernel_takes(n_fft):
+            plane = channels * (1 + (n - n_fft) // cfg.hop_length) * (n_fft + 2) * 4
+            k2 += -(-taps // max(1, FRAME_PLANE_BUDGET_BYTES // plane))
+    return k1, k2
+
+
+def phase5_tolerance(key: str) -> tuple:
+    """Phase 5's JSON limits (compare_metrics): floats 1e-4 relative and
+    absolute, per-bin modal fits 1e-2, group delay 1e-3 relative."""
+    return {"gd_p10": (1e-3, 1e-4), "gd_median": (1e-3, 1e-4), "gd_p90": (1e-3, 1e-4)}.get(key, (1e-4, 1e-4))
+
+
+def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
+    """Drawn EngineConfigs (and the fixed draws of the fuzz findings)
+    through `analyze_bundle_pipelined` on the bundle's first 8 taps, kernels
+    against plain versions under phase 5's limits with tests/_engine_parity.py's
+    conditioning runs (the kernel path on the taps with float32 round-off
+    noise and with the dB targets moved), K1 / K2 launches exactly as the
+    config implies."""
+    import dataclasses
+
+    import numpy as np
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from _engine_parity import assert_engines_agree, conditioning_runs
+
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, analyze_bundle_pipelined
+    from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    _meta, lengths, _names, n_max, loader = open_bundle_chunks_i16(root)
+    lengths = lengths[:FUZZ_TAPS]
+    x = loader(0, FUZZ_TAPS).astype(np.float32) * (1.0 / 32768.0)
+
+    def on_card(xs, lens, cfg):
+        res = analyze_batch(torch.from_numpy(xs).to(dev), torch.from_numpy(lens).to(dev), cfg)
+        return {k: v.cpu().numpy() for k, v in res.items()}
+
+    draws = [("time_axis_finding", {**dataclasses.asdict(EngineConfig()), **TIME_AXIS_FIELDS}),
+             ("frame_plane_finding", {**dataclasses.asdict(EngineConfig()), **FRAME_PLANE_FIELDS})]
+    draws += [(f"drawn {i}", draw_engine_fields(rng)) for i in range(FUZZ_ENGINE_DRAWS)]
+    worst, totals = 0.0, {"edc": 0, "stft": 0}
+    for i, (label, fields) in enumerate(draws):
+        cfg = EngineConfig(**fields)
+        fuzz_log("engine", i, seed, {"label": label, **fields})
+        kernel, launches = read_launches(
+            counters, lambda: analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev))
+        want = expected_engine_launches(cfg, FUZZ_TAPS, n_max)
+        if (launches["edc"], launches["stft"]) != want:
+            raise AssertionError(f"engine fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        for name in totals:
+            totals[name] += launches[name]
+        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+            plain = analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev)
+        runs = conditioning_runs(on_card, x, lengths, cfg)
+        worst = max(worst, assert_engines_agree(plain, kernel, runs, phase5_tolerance, np.ones(FUZZ_TAPS, bool),
+                                                f"engine fuzz draw {i}: "))
+    # fuzz finding (repaired): a frame block longer than the signal raises a
+    # ValueError before any launch, as the JAX engine raises one
+    for j, block in enumerate(("n_fft", "modal_n_fft")):
+        cfg = EngineConfig(**{block: 2 * n_max})
+        fuzz_log("engine", len(draws) + j, seed, {"label": "frame_longer_than_signal", block: 2 * n_max})
+        for counter in counters:
+            counter.launches = 0
+        try:
+            analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev)
+        except ValueError as exc:
+            if block not in str(exc) or any(c.launches for c in counters):
+                raise AssertionError(f"{block} above N: {exc}; launches {[c.launches for c in counters]}") from exc
+        else:
+            raise AssertionError(f"{block} above N ran; the JAX engine raises a ValueError")
+    return {"draws": len(draws) + 2, "worst_ratio_vs_plain": worst, "launches": totals}
+
+
+def summary_ratio(ref: str, got: str, rel: float, abs_: float) -> float:
+    """The largest ratio of a summary number's difference to its limit."""
+    from _summary_parity import _ANY_NUM
+
+    ratios = [abs(float(a) - float(b)) / max(abs_, rel * max(abs(float(a)), abs(float(b))))
+              for a, b in zip(_ANY_NUM.findall(ref), _ANY_NUM.findall(got))]
+    return max(ratios, default=0.0)
+
+
+def draw_per_file_argv(rng, cmd: str) -> list:
+    """Drawn flags of one per-file command (K1's and K2's analyses)."""
+    def pick(*values):
+        return values[int(rng.integers(len(values)))]
+
+    argv = [cmd]
+    if rng.random() < 0.3:
+        argv.append("--mono")
+    if cmd == "decay":
+        argv += ["--ignore-leading", str(pick(0.0, 0.002, 0.01)), "--edc_floor_db", str(pick(-150.0, -120.0, -90.0)),
+                 "--fit_lower_limit_db", str(pick(-80.0, -60.0)), "--smoothing", str(pick(0, 9, 480)),
+                 pick("--compute_edt", "--no-compute_edt"), pick("--trim_to_peak", "--no-trim_to_peak")]
+    elif cmd == "rt60bands":
+        argv += ["--band_mode", pick("three", "octave", "third"), "--low_upper_hz", str(pick(200.0, 300.0)),
+                 "--high_lower_hz", str(pick(3000.0, 4000.0)), "--transition_width_octaves", str(pick(1 / 6, 0.5)),
+                 "--f_min_hz", str(pick(31.5, 125.0)), "--f_max_hz", str(pick(8000.0, 16000.0))]
+        argv += [flag for flag in ("--include_t20", "--include_edt") if rng.random() < 0.5]
+    else:
+        n_fft = pick(*K2_INSTANCES) if rng.random() < 0.7 else pick(128, 3000, 20000)
+        argv += ["--n_fft", str(n_fft), "--hop_length", str(pick(256, 333, 512, 1024)),
+                 "--floor_db", str(pick(-120.0, -100.0)), "--ignore-leading", str(pick(0.0, 0.01))]
+        if rng.random() < 0.3:
+            argv.append("--no_hann_window")
+        if cmd == "waterfall":
+            argv += ["--slice_mode", pick("auto", "uniform_time", "uniform_frames"),
+                     "--db_reference", pick("global_max", "slice_max"), "--num_slices", str(pick(6, 18))]
+        elif cmd == "modalcloud":
+            argv += ["--metric", pick("t30", "t20", "edt"), "--min_fit_points", str(pick(8, 10)),
+                     "--log_bins_per_octave", str(pick(12, 24))]
+        else:
+            argv += ["--dynamic_range_db", str(pick(60.0, 90.0))]
+    return argv
+
+
+def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict:
+    """Drawn flag sets of decay, rt60bands, spectrogram, waterfall and
+    modalcloud through the CLI entry on the bundle's first tap: the kernel
+    run against the plain run (phase 8's summary tolerances, the same JSON
+    keys), K1 / K2 launches exact (decay and rt60bands K1 once; the STFT
+    analyses K2 once where it has the n_fft, else 0)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _summary_parity import assert_summaries_agree, json_skeleton
+
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    out_dir = REPO / "build" / "chip_smoke_fuzz"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tap = root / "taps" / "tap00.wav"
+    commands = ["decay", "rt60bands", "spectrogram", "waterfall", "modalcloud"] * 2
+    worst, totals = 0.0, {"edc": 0, "stft": 0}
+    for i, cmd in enumerate(commands):
+        argv = draw_per_file_argv(rng, cmd)
+        fuzz_log("per_file", i, seed, " ".join(argv))
+        if cmd in ("decay", "rt60bands"):
+            want = (1, 0)
+        else:
+            want = (0, int(stft.kernel_takes(int(argv[argv.index("--n_fft") + 1]))))
+
+        def run(name):
+            return run_cli_text(torch, cli_main, [*argv, "--input", str(tap), "--no_show",
+                                                  "--json", str(out_dir / f"{i}_{name}.json")])[1]
+
+        kernel_text, launches = read_launches(counters, lambda: run("kernel"))
+        if (launches["edc"], launches["stft"]) != want:
+            raise AssertionError(f"per-file fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        for name in totals:
+            totals[name] += launches[name]
+        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+            plain_text = run("plain")
+        tol = SUMMARY_TOLERANCES[cmd]
+        ref, got = plain_text.split("\n", 1)[1], kernel_text.split("\n", 1)[1]
+        assert_summaries_agree(ref, got, *tol, f"per-file fuzz draw {i}")
+        worst = max(worst, summary_ratio(ref, got, *tol))
+        if json_skeleton(json.loads((out_dir / f"{i}_kernel.json").read_text())) != json_skeleton(
+                json.loads((out_dir / f"{i}_plain.json").read_text())):
+            raise AssertionError(f"per-file fuzz draw {i}: JSON keys of the kernel and the plain run differ")
+    return {"draws": len(commands), "worst_ratio_vs_plain": worst, "launches": totals}
+
+
+def fuzz_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dict, seed: int) -> dict:
+    """Phase 12: K1 and K2 at drawn shapes and settings against their plain
+    versions and the port's float64 oracle, then drawn engine configs and
+    per-file flag sets through their entry points, kernels against plain
+    versions with exact launches. One numpy Generator from `seed`."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch import oracle
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    log(f"fuzz seed {seed}")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    out = {"seed": seed, "card": card_line()}
+    out["k1"] = fuzz_k1(torch, edc, oracle, dev, rng, seed)
+    out["k2"] = fuzz_k2(torch, stft, oracle, dev, rng, seed)
+    out["engine"] = fuzz_engine(torch, root, dev, counters, rng, seed)
+    out["per_file"] = fuzz_per_file(torch, cli_main, root, counters, rng, seed)
+    launches_by_path["fuzz"] = {
+        name: out["engine"]["launches"][name] + out["per_file"]["launches"][name] for name in ("edc", "stft")
+    }
+    out["seconds"] = time.perf_counter() - t0
+    log(f"fuzz: {out}")
+    return out
+
+
 def check_modules(reached, banned_roots) -> None:
     """Every module of `reached` (under audio_analysis_tpu_torch) loaded,
     and no module under `banned_roots`."""
@@ -1624,7 +2045,15 @@ def check_modules(reached, banned_roots) -> None:
         raise AssertionError(f"the port's path imported {banned}; did not load {missing}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.")
+    parser.add_argument("--fuzz-seed", type=int, default=FUZZ_SEED,
+                        help=f"seed of phase 12's draws (default {FUZZ_SEED}); a failing draw prints its seed")
+    parser.add_argument("--fuzz-only", action="store_true",
+                        help="run only the build, the bundle and phase 12 (to rerun a failing draw)")
+    args = parser.parse_args(argv)
     if not (REPO / "audio_analysis_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository", file=sys.stderr)
         return 2
@@ -1661,12 +2090,13 @@ def main() -> int:
         raise AssertionError(f"K1 edc_kernel missing from ptxas' report or spilling: {edc_ptxas}")
 
     # 2. kernels vs plain versions on the card
-    t0 = time.perf_counter()
-    g = torch.Generator().manual_seed(0)
-    k_out = modal_tables(EngineConfig())[2]
-    edc_err, edc_shapes = check_edc(torch, edc, dev, g)
-    stft_err, stft_shapes = check_stft(torch, stft, dev, g, k_out)
-    phases["kernel_check_s"] = time.perf_counter() - t0
+    if not args.fuzz_only:
+        t0 = time.perf_counter()
+        g = torch.Generator().manual_seed(0)
+        k_out = modal_tables(EngineConfig())[2]
+        edc_err, edc_shapes = check_edc(torch, edc, dev, g)
+        stft_err, stft_shapes = check_stft(torch, stft, dev, g, k_out)
+        phases["kernel_check_s"] = time.perf_counter() - t0
 
     # 3. the bundle
     t0 = time.perf_counter()
@@ -1676,9 +2106,17 @@ def main() -> int:
     if not (root / "meta.json").exists() or len(read_bundle_meta(root).taps) != TAPS:
         write_bench_bundle(root, write_bundle)
     phases["bundle_write_s"] = time.perf_counter() - t0
+    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL)
+    if args.fuzz_only:
+        fuzz = fuzz_phase(torch, cli_main, root, dev, counters, {}, args.fuzz_seed)
+        check_modules(("oracle",), ("jax", "audio_analysis_tpu"))
+        print(json.dumps({"fuzz": fuzz}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # 4. the main path, through the CLI entry
-    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL)
     torch.cuda.reset_peak_memory_stats(dev)
     phases["e2e_cold_s"], launches = count_launches(counters, lambda: run_cli(cli_main, root, "reports_cuda"))
     launches_by_path = {MAIN_PATH: launches}
@@ -1755,6 +2193,11 @@ def main() -> int:
     multi = multi_device_phase(torch, root, dev, counters, launches_by_path, cuda_json)
     phases["multi_device_s"] = time.perf_counter() - t0
     check_modules(("engine.mesh", "engine.distributed"), ("jax", "audio_analysis_tpu"))
+
+    # 12. the settings fuzz
+    fuzz = fuzz_phase(torch, cli_main, root, dev, counters, launches_by_path, args.fuzz_seed)
+    phases["fuzz_s"] = fuzz["seconds"]
+    check_modules(("oracle",), ("jax", "audio_analysis_tpu"))
     log("phases " + json.dumps(phases))
 
     kernels = [
@@ -1775,6 +2218,7 @@ def main() -> int:
     print(json.dumps({"per_file_rest": rest}))
     print(json.dumps({"plots": plots}))
     print(json.dumps({"multi_device": multi}))
+    print(json.dumps({"fuzz": fuzz}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({

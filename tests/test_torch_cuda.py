@@ -376,3 +376,46 @@ def test_pooled_image_on_card_equals_cpu(dev, valid):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(card[1], cpu[1], rtol=0, atol=1 / 128)
     np.testing.assert_allclose(card[2], cpu[2], rtol=0, atol=1 / 128)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernels_match_the_float64_oracle_at_drawn_shapes(dev, seed):
+    """K1 and K2 on the card against the port's float64 oracle at drawn
+    shapes: K1 within tests/test_edc_precision.py's 0.02 dB wherever the
+    oracle's curve is at or above -80 dB (no trim, drawn eps and floor),
+    0 past `length`; K2 within 1e-5 of the oracle's largest magnitude at a
+    drawn instance, hop, k_out, floor and window."""
+    from audio_analysis_tpu_torch import oracle
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.choice([4095, 16385, 1 << 18, (1 << 20) - 3]))
+    rows = int(rng.integers(2, 9))
+    lengths = rng.integers(4, n + 1, rows).astype(np.int32)
+    lengths[0] = n
+    eps = float(rng.choice([1e-30, 1e-20, 1e-12]))
+    floor = float(rng.choice([-120.0, -60.0, -np.inf]))
+    x = (rng.standard_normal((rows, n)) * np.exp(-np.arange(n) / rng.uniform(100.0, n, (rows, 1)))).astype(np.float32)
+    x[np.arange(n)[None, :] >= lengths[:, None]] = 0.0
+    got = edc.schroeder_edc_db_cuda(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), eps, floor).cpu().numpy()
+    for row, length in enumerate(lengths):
+        assert np.all(got[row, length:] == 0.0)
+        _, ref, _ = oracle.schroeder_edc_db(x[row, :length].astype(np.float64), 48_000, False, 0.0, eps, floor)
+        region = ref >= -80.0
+        np.testing.assert_allclose(got[row, :length][region], ref[region], atol=0.02)
+
+    n_fft = int(rng.choice([256, 512, 1024, 2048, 4096, 8192, 16384]))
+    hop = int(rng.integers(n_fft // 8, n_fft + 1))
+    n = n_fft + 40 * hop
+    k_out = int(rng.integers(1, n_fft // 2 + 2))
+    floor_db = float(rng.choice([-200.0, -120.0, -60.0]))
+    hann = bool(seed % 2 == 0)
+    x = rng.standard_normal((2, n)).astype(np.float32) * np.exp(-np.arange(n) / n).astype(np.float32)
+    lengths = np.array([n, n_fft + 7 * hop], np.int32)
+    x[1, lengths[1]:] = 0.0
+    got = stft.stft_magnitude_cuda(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), n_fft, hop, hann,
+                                   10.0 ** (floor_db / 20.0), k_out).cpu().numpy()
+    for row, length in enumerate(lengths):
+        _, _, ref_db = oracle.stft_magnitude_db(x[row, :length].astype(np.float64), 48_000, n_fft, hop, hann, floor_db)
+        ref = 10.0 ** (ref_db[:k_out].T / 20.0)
+        assert np.max(np.abs(got[row, : ref.shape[0]] - ref)) <= 1e-5 * ref.max()
+        assert np.all(got[row, ref.shape[0]:] == 0.0)
