@@ -66,12 +66,12 @@ def rt60_from_pole_radius(radius: float, sample_rate_hz: int) -> float:
     return float(np.log(1000.0) * tau_seconds)
 
 
-def analyse_zplane_channels(
-    dsp: FileDsp,
-    settings: ZPlaneAnalysisSettings,
-) -> List[ChannelZPlaneResult]:
-    """All channels' Gram accumulations in one batched device pass; the
-    solves and the roots on the host, per channel."""
+def fit_ar_channels(dsp: FileDsp, settings: ZPlaneAnalysisSettings) -> List[np.ndarray]:
+    """Each channel's AR coefficients (a[0] = 1) of its trimmed and, with
+    `normalise_segment`, peak-normalised segment: every channel's Gram in
+    one batched float32 device pass, the float64 solves on the host. The
+    order drops to one less than the shortest segment where that is
+    shorter than `ar_order`."""
     trim_key = (settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds)
     aligned = dsp.aligned(*trim_key)
     _, seg_lens = dsp.aligned_host_meta(*trim_key)
@@ -90,22 +90,42 @@ def analyse_zplane_channels(
 
     normal = spectral.ar_normal_equations(seg, aligned.length, order)
     grams, moments = fetch_packed(normal.gram, normal.moment)
+    return [
+        spectral.solve_ar_coefficients(grams[i], moments[i], float(settings.ridge_lambda))
+        for i in range(dsp.num_channels)
+    ]
 
-    segs64: List[np.ndarray] = []
-    if settings.derive_zeros:
-        # the zeros use the float64 normalised segment, as the JAX package does
-        host = aligned.samples.cpu().numpy()
-        for i in range(dsp.num_channels):
-            s = host[i][: int(seg_lens[i])].astype(np.float64)
-            if settings.normalise_segment and s.size:
-                peak64 = float(np.max(np.abs(s)))
-                if peak64 > 0.0:
-                    s = s / peak64
-            segs64.append(s)
+
+def host_segments(dsp: FileDsp, settings: ZPlaneAnalysisSettings) -> List[np.ndarray]:
+    """Each channel's trimmed segment in float64 on the host, divided by
+    its peak with `normalise_segment`."""
+    trim_key = (settings.trim_to_peak, settings.ignore_leading_seconds, settings.analysis_duration_seconds)
+    _, seg_lens = dsp.aligned_host_meta(*trim_key)
+    host = dsp.aligned(*trim_key).samples.cpu().numpy()
+    segments = []
+    for i in range(dsp.num_channels):
+        s = host[i][: int(seg_lens[i])].astype(np.float64)
+        if settings.normalise_segment and s.size:
+            peak64 = float(np.max(np.abs(s)))
+            if peak64 > 0.0:
+                s = s / peak64
+        segments.append(s)
+    return segments
+
+
+def analyse_zplane_channels(
+    dsp: FileDsp,
+    settings: ZPlaneAnalysisSettings,
+) -> List[ChannelZPlaneResult]:
+    """All channels' Gram accumulations in one batched device pass; the
+    solves and the roots on the host, per channel."""
+    coefficients = fit_ar_channels(dsp, settings)
+    # the zeros use the float64 normalised segment, as the JAX package does
+    segs64 = host_segments(dsp, settings) if settings.derive_zeros else []
 
     results = []
     for i, channel_name in enumerate(dsp.channel_names):
-        a = spectral.solve_ar_coefficients(grams[i], moments[i], float(settings.ridge_lambda))
+        a = coefficients[i]
         zeros: Optional[np.ndarray] = None
         if settings.derive_zeros:
             b = spectral.derive_fir_numerator_from_ar(a, segs64[i], int(settings.zero_order))

@@ -206,24 +206,46 @@ def wav_header_info(path: str | Path):
         return None
 
 
+# (str(path), st_mtime_ns) -> (sample_rate_hz, raw samples) of the last
+# _RAW_CACHE_MAX files decoded, oldest first
+_RAW_CACHE: dict = {}
+_RAW_CACHE_MAX = 4
+
+
 def _read_wav_raw(path: Path) -> Tuple[int, np.ndarray]:
     """(sample_rate_hz, raw samples) of a WAV file, from the native decoder
-    when it is built and covers the format, else from scipy."""
+    when it is built and covers the format, else from scipy.
+
+    A report opens its input once per analysis (the header, the analyses'
+    channels, the IR views): a small mtime-keyed cache decodes it once. A
+    rewritten file has a new mtime and is decoded again; errors are not
+    cached. Every caller gets the same array and must not write to it."""
+    key = (str(path), path.stat().st_mtime_ns)
+    if key in _RAW_CACHE:
+        return _RAW_CACHE[key]
+
+    result = None
     if native.available():
         try:
-            return native.read_wav(path)
+            result = native.read_wav(path)
         except IOError:
             pass  # a format the native decoder does not cover
-    from scipy.io import wavfile
+    if result is None:
+        from scipy.io import wavfile
 
-    try:
-        sample_rate_hz, data = wavfile.read(str(path))
-    except (IOError, ValueError):
-        raise
-    except Exception as exc:
-        # scipy raises arbitrary errors on malformed headers
-        raise IOError(f"unreadable WAV file {path}: {exc!r}") from exc
-    return int(sample_rate_hz), data
+        try:
+            sample_rate_hz, data = wavfile.read(str(path))
+        except (IOError, ValueError):
+            raise
+        except Exception as exc:
+            # scipy raises arbitrary errors on malformed headers
+            raise IOError(f"unreadable WAV file {path}: {exc!r}") from exc
+        result = (int(sample_rate_hz), data)
+
+    if len(_RAW_CACHE) >= _RAW_CACHE_MAX:
+        _RAW_CACHE.pop(next(iter(_RAW_CACHE)))
+    _RAW_CACHE[key] = result
+    return result
 
 
 def load_wav_file(

@@ -3,10 +3,11 @@ Host-side plotting helpers (matplotlib), a copy of audio_analysis_tpu/plot:
 the house style (10x6 in at 100 dpi, grid on, save the PNG and close when
 an output path is given, otherwise an interactive show), the Hz tick
 treatment of every log-frequency plot, the stable tight-bbox cache, the
-live figure templates, min-max display decimation and the log-frequency
-image. Host numpy only: the figure functions of the port's analyses import
-this module inside themselves, so the package and every path that draws
-no figure load no matplotlib.
+live figure templates, min-max display decimation, the log-frequency
+image and the reference's five generic drawing helpers. Host numpy only:
+the figure functions of the port's analyses import this module inside
+themselves, so the package and every path that draws no figure load no
+matplotlib.
 """
 
 from __future__ import annotations
@@ -681,3 +682,92 @@ def log_frequency_image(
         else:
             image[r] = mag_fb_t[lo_i:hi_i].max(axis=0)
     return image, np.log10(edges)
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible drawing helpers (the reference's plotting.py:106-217),
+# as in audio_analysis_tpu/plot: external scripts built on the reference's
+# plotting API call them directly. No analysis or report calls them (those
+# draw through the house-style paths above); these stay simple on purpose.
+# ---------------------------------------------------------------------------
+
+
+def plot_time_series(
+    axis,
+    time_seconds: np.ndarray,
+    samples: np.ndarray,
+    label: Optional[str] = None,
+    color: Optional[str] = None,
+    alpha: float = 1.0,
+) -> None:
+    """Line plot of samples over time; adds a legend when labelled."""
+    axis.plot(time_seconds, samples, label=label, color=color, alpha=alpha)
+    if label is not None:
+        axis.legend(loc="best")
+
+
+def plot_log_magnitude_over_time(
+    axis,
+    time_seconds: np.ndarray,
+    magnitude: np.ndarray,
+    floor_db: float = -120.0,
+    alpha: float = 1.0,
+    label: Optional[str] = None,
+) -> None:
+    """Magnitude in dB over time, floored at floor_db."""
+    floored = np.maximum(np.asarray(magnitude), 10.0 ** (floor_db / 20.0))
+    axis.plot(time_seconds, 20.0 * np.log10(floored), alpha=alpha, label=label)
+    axis.set_ylim(bottom=floor_db)
+
+
+def plot_spectrogram(
+    axis,
+    spectrogram_magnitude: np.ndarray,
+    time_seconds: np.ndarray,
+    frequency_hz: np.ndarray,
+    magnitude_floor_db: float = -120.0,
+) -> None:
+    """Log-magnitude spectrogram via pcolormesh on a log-frequency axis."""
+    floor_lin = 10.0 ** (magnitude_floor_db / 20.0)
+    level_db = 20.0 * np.log10(np.maximum(np.asarray(spectrogram_magnitude), floor_lin))
+    mesh = axis.pcolormesh(
+        time_seconds, frequency_hz, level_db, shading="nearest", cmap="magma"
+    )
+    axis.set_ylabel("Frequency (Hz)")
+    axis.set_ylim(bottom=frequency_hz[1])
+    axis.set_yscale("log")
+    plt.colorbar(mesh, ax=axis, label="Magnitude (dB)")
+
+
+def plot_waterfall_lines(
+    axis,
+    frequency_hz: np.ndarray,
+    magnitude_slices: np.ndarray,
+    time_offsets: np.ndarray,
+    offset_scale: float = 1.0,
+) -> None:
+    """Stacked spectral slices (CSD-style), each offset by its time."""
+    for s in range(np.asarray(magnitude_slices).shape[0]):
+        axis.plot(
+            frequency_hz,
+            magnitude_slices[s] + time_offsets[s] * offset_scale,
+            linewidth=1.0,
+        )
+    axis.set_xscale("log")
+    axis.set_xlabel("Frequency (Hz)")
+    axis.set_ylabel("Magnitude + time offset")
+
+
+def plot_scatter(
+    axis,
+    x_values: np.ndarray,
+    y_values: np.ndarray,
+    size_values: Optional[np.ndarray] = None,
+    alpha: float = 0.7,
+) -> None:
+    """Generic scatter helper (mode clouds)."""
+    if size_values is None:
+        axis.scatter(x_values, y_values, alpha=alpha)
+    else:
+        axis.scatter(x_values, y_values, s=size_values, alpha=alpha)
+    axis.grid(True)

@@ -89,7 +89,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      with the Karplus-Strong device time under torch.profiler.
  10. the plot reports (outputs under build/chip_smoke_plots/): the tap's
      report in process with its render jobs recorded, not drawn (K1 and
-     K2 launched 2 and 2, exactly), cold, warm, under torch.profiler and
+     K2 launched 2 and 2, exactly; the tap decoded once cold, the WAV read
+     cache emptied first, and not at all in 3 warm reports, counted by
+     wrapping the native decoder and scipy), cold, warm, under torch.profiler and
      with the plain versions swapped in, every render job's arrays within
      tests/_render_jobs.py's per-module tolerances of the plain run's and
      the markdown agreeing; the golden IR's report against
@@ -143,9 +145,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      raising a ValueError before any launch; ten drawn flag sets of decay,
      rt60bands, spectrogram, waterfall and modalcloud through the CLI entry
      on the bundle's first tap, the kernel run against the plain run
-     (phase 8's tolerances, the same JSON keys), launches exact. A failing
-     draw raises; `python3 chip_smoke.py --fuzz-only --fuzz-seed S` reruns
-     phases 1, 3 and 12 alone with the printed seed.
+     (phase 8's tolerances, the same JSON keys), launches exact; ten drawn
+     filter, zplane, deconvolve and ir runs and four drawn gen runs
+     (Karplus-Strong first) on the card against --device cpu, neither
+     kernel launched (phase 9's rules: filter's summaries within its
+     tolerances, zplane's pole and zero counts exact and radii within
+     8e-2, the deconvolved IR within tests/_fuzz_spaces.py's limits of the
+     CPU run's peak, ir's JSON and stdout equal, gen's WAVs byte-identical but
+     Karplus-Strong's within 1 LSB; the worst ratio per command); two
+     meshes on cuda:0, of 1 and of 2 shards, each over 1-8 of the bundle's
+     taps with a drawn EngineConfig and chunk, bit-equal to the
+     single-device run with the same taps a chunk, K1 / K2 launched as
+     expected_engine_launches says per shard. A failing draw raises;
+     `python3 chip_smoke.py --fuzz-only --fuzz-seed S` reruns phases 1, 3
+     and 12 alone with the printed seed.
 
 Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
 package (audio_analysis_tpu). The last lines are the per-file JSON, the
@@ -1177,6 +1190,28 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
     return results
 
 
+def count_decodes(fn):
+    """(fn(), {"native": n, "scipy": m}): the WAV decodes fn makes, counted
+    by wrapping the native decoder's read_wav and scipy's wavfile.read."""
+    import scipy.io.wavfile
+
+    from audio_analysis_tpu_torch.io import native
+
+    counts = {"native": 0, "scipy": 0}
+
+    def counted(name, read):
+        def wrapped(*args, **kwargs):
+            counts[name] += 1
+            return read(*args, **kwargs)
+
+        return wrapped
+
+    with mock.patch.object(native, "read_wav", counted("native", native.read_wav)), \
+            mock.patch.object(scipy.io.wavfile, "read", counted("scipy", scipy.io.wavfile.read)):
+        result = fn()
+    return result, counts
+
+
 def embedded_images(md_path: Path) -> set:
     """The PNG names a report's markdown embeds."""
     return set(re.findall(r"!\[[^\]]*\]\(([^)]+)\)", md_path.read_text()))
@@ -1250,6 +1285,7 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     from _render_jobs import RecordingPlotWorker, compare_jobs
 
     from audio_analysis_tpu_torch.io import materialize_bundle_view
+    from audio_analysis_tpu_torch.io import wav as wav_io
     from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
     from audio_analysis_tpu_torch.ops import edc, stft
     from audio_analysis_tpu_torch.report import bundle as bundle_module
@@ -1281,14 +1317,24 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
         return time.perf_counter() - t0, result, jobs
 
     # 10.1 the report in process, figures recorded: K1 and K2 twice each,
-    # the kernel run against the plain run
+    # the kernel run against the plain run; the tap decoded once in a cold
+    # report (the read cache emptied first: earlier phases read the tap)
+    # and not at all in a warm one over the unchanged file
+    wav_io._RAW_CACHE.clear()
     torch.cuda.reset_peak_memory_stats(dev)
-    (cold, kernel_md, kernel_jobs), launches = read_launches(counters, lambda: recorded(out_dir / "rec_k" / "tap00"))
+    ((cold, kernel_md, kernel_jobs), launches), cold_decodes = count_decodes(
+        lambda: read_launches(counters, lambda: recorded(out_dir / "rec_k" / "tap00")))
     if (launches["edc"], launches["stft"]) != (2, 2):
         raise AssertionError(f"report (figures recorded): launches {launches}, expected K1 2, K2 2")
     launches_by_path["report (figures recorded)"] = launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    warm = [recorded(out_dir / "rec_k" / "tap00")[0] for _ in range(3)]
+    warm, warm_decodes = count_decodes(lambda: [recorded(out_dir / "rec_k" / "tap00")[0] for _ in range(3)])
+    if sum(cold_decodes.values()) != 1 or sum(warm_decodes.values()) != 0:
+        raise AssertionError(f"report decodes: cold {cold_decodes} (expected 1), 3 warm {warm_decodes} (expected 0)")
+    out["report_decodes"] = {"cold": cold_decodes, "warm_3_reports": warm_decodes, "warm_s": warm,
+                             "card": card_line()}
+    log(f"report decodes of the tap: cold {cold_decodes}, 3 warm reports {warm_decodes}; warm "
+        f"{min(warm):.3f}-{max(warm):.3f} s; {out['report_decodes']['card']}")
     busy = device_busy(torch, lambda: recorded(out_dir / "rec_k" / "tap00"))
     with plain_kernels[0], plain_kernels[1]:
         plain, plain_md, plain_jobs = recorded(out_dir / "rec_p" / "tap00")
@@ -2010,6 +2056,251 @@ def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict
     return {"draws": len(commands), "worst_ratio_vs_plain": worst, "launches": totals}
 
 
+# the rest draws (filter, zplane, deconvolve, ir) and the gen draws; the
+# gen flag space and the deconvolution limits are tests/_fuzz_spaces.py's
+FUZZ_REST_COMMANDS = ("filter", "zplane", "deconvolve", "ir") * 2 + ("filter", "zplane")
+FUZZ_GEN_DRAWS = 4
+FUZZ_MESH_DRAWS = 2
+# every module phase 12's draws load
+FUZZ_MODULES = ("oracle", "analyses.filterplot", "analyses.zplane", "analyses.deconvolve",
+                "analyses.impulse_response", "cli.gen_cli", "signals.torchgen", "engine.mesh")
+
+
+def draw_rest_argv(rng, cmd: str, inputs: dict) -> tuple:
+    """(argv without --json / --device, input label) of one drawn filter,
+    zplane, deconvolve or ir run (tests/test_torch_fuzz_rest.py's and
+    tests/test_torch_fuzz.py's spaces)."""
+    def pick(*values):
+        return values[int(rng.integers(len(values)))]
+
+    if cmd == "deconvolve":
+        reg = pick(1e-12, 1e-10, 1e-8)
+        label = pick(*[k for k in inputs if k.startswith("recorded")])
+        return ["deconvolve", "--recorded_wav_file_path", str(inputs[label]), "--sweep_wav_file_path",
+                str(inputs["sweep"]), "--regularization_relative", str(reg),
+                pick("--normalise_peak", "--no-normalise_peak"), "--target_peak", str(pick(0.5, 0.95, 1.0)),
+                pick("--remove_dc", "--no-remove_dc"), "--output_length_mode", pick("recorded", "full_fft")], label
+    if cmd == "ir":
+        argv = ["ir", "--no_show", "--early-window", str(pick(0.005, 0.08, 0.5)),
+                "--floor-db", str(pick(-140.0, -120.0, -60.0))]
+        return argv + (["--mono"] if rng.random() < 0.3 else []), pick("tap", "verb", "damped")
+    argv = [cmd, "--no-show" if cmd == "zplane" else "--no_show"]
+    if rng.random() < 0.3:
+        argv.append("--mono")
+    argv += ["--ignore-leading", str(pick(0.0, 0.002, 0.01))]
+    if cmd == "zplane":
+        duration = pick(None, 0.05, 0.1)
+        argv += ["--ar-order", str(pick(8, 16, 32, 64)), "--ridge", str(pick(0.0, 1e-6, 1e-5))]
+        if rng.random() < 0.5:
+            argv += ["--zeros", "--zero-order", str(pick(4, 8, 16))]
+        if rng.random() < 0.2:
+            argv.append("--no-trim")
+        label = pick("damped", "modal")
+    else:
+        duration = pick(None, 0.3, 1.0)
+        argv += [pick("--trim_to_peak", "--no-trim_to_peak"), "--magnitude_floor_db", str(pick(-140.0, -120.0, -100.0)),
+                 "--f_min_hz", str(pick(20.0, 50.0)), "--f_max_hz", str(pick(10000.0, 20000.0)),
+                 "--phase_mode", pick("degrees", "radians")]
+        argv += [flag for flag in ("--no_unwrap_phase", "--no_hann_window") if rng.random() < 0.3]
+        if rng.random() < 0.4:
+            argv.append("--exact-grid")
+        label = pick("tap", "verb")
+    if duration is not None:
+        argv += ["--duration", str(duration)]
+    return argv, label
+
+
+def zplane_ratio(card: str, cpu: str) -> float:
+    """The largest ratio of a z-plane radius difference to its limit."""
+    rel, abs_ = REST_TOLERANCES["zplane"]
+    return max((abs(x - y) / max(abs_, rel * max(abs(x), abs(y)))
+                for a, b in zip(zplane_lines(card), zplane_lines(cpu)) for x, y in zip(a[2:4], b[2:4])), default=0.0)
+
+
+def fuzz_inputs(out_dir: Path, root: Path) -> dict:
+    """The rest draws' inputs: the bundle's first tap, verb_ir.wav, the
+    damped and modal IRs of tests/parity_matrix.py, its 1 s sweep and three
+    recordings of it (the golden, modal and damped IRs cut to 2^16, 8192
+    and 2048 samples, stereo, mono and stereo); a draw picks one."""
+    import golden_utils
+    import parity_matrix
+
+    from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
+
+    inputs = {"tap": root / "taps" / "tap00.wav", "verb": REPO / "examples" / "gallery" / "verb_ir.wav"}
+    irs = {"noise": golden_utils.make_golden_ir(), "damped": parity_matrix.make_damped_ir(),
+           "modal": parity_matrix.make_modal_ir()}
+    for name in ("damped", "modal"):
+        inputs[name] = out_dir / f"{name}.wav"
+        write_wav_pcm16(inputs[name], irs[name], SR)
+    inputs["sweep"] = out_dir / "sweep.wav"
+    write_wav_pcm16(inputs["sweep"], parity_matrix.make_sweep(), SR)
+    for name, length, channels in (("noise", 1 << 16, 2), ("modal", 8192, 1), ("damped", 2048, 2)):
+        key = f"recorded_{name}_{length}_{channels}"
+        inputs[key] = out_dir / f"{key}.wav"
+        write_wav_pcm16(inputs[key], parity_matrix.make_recorded(irs[name][:length, :channels]), SR)
+    return inputs
+
+
+def fuzz_rest(torch, cli_main, root: Path, counters, rng, seed: int) -> dict:
+    """Drawn flag sets of filter, zplane, deconvolve and ir, and drawn gen
+    subcommands (Karplus-Strong first), each through its CLI entry on the
+    card and with --device cpu; neither kernel launches (both counts 0).
+    The card run against the CPU run: filter's summaries within phase 9's
+    tolerances (its exact-grid tolerance with --exact-grid), zplane by
+    compare_zplane (pole counts exact, radii within REST_TOLERANCES, an
+    unstable-count flip logged) with equal zero counts, the deconvolved IR
+    within tests/_fuzz_spaces.py's DECONVOLVE_TOL (float32 against float32)
+    of the CPU run's peak with equal WAV headers, ir's --json and stdout
+    equal (the tightest it holds), gen's WAV bytes equal but
+    Karplus-Strong's (1 LSB). The worst ratio of a difference to its limit
+    per command."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from _fuzz_spaces import DECONVOLVE_TOL, GEN_FLAGS
+    from _summary_parity import assert_summaries_agree, json_skeleton
+
+    from audio_analysis_tpu_torch.cli.gen_cli import main as gen_main
+
+    out_dir = REPO / "build" / "chip_smoke_fuzz" / "rest"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    inputs = fuzz_inputs(out_dir, root)
+    zero = {c.name: 0 for c in counters}
+    worst = {cmd: 0.0 for cmd in ("filter", "zplane", "deconvolve", "ir", "gen")}
+    flips, identical = [], []
+    for i, cmd in enumerate(FUZZ_REST_COMMANDS):
+        argv, label = draw_rest_argv(rng, cmd, inputs)
+        fuzz_log("rest", i, seed, f"{' '.join(argv)} on {label}")
+
+        def run(side):
+            device = "cuda" if side == "card" else "cpu"
+            if cmd == "deconvolve":
+                return run_cli_text(torch, cli_main, [*argv, "--output_ir_wav_file_path", str(out_dir / f"{i}_{side}.wav"),
+                                                      "--device", device])[1]
+            return run_cli_text(torch, cli_main, [argv[0], "--input", str(inputs[label]), *argv[1:], "--json",
+                                                  str(out_dir / f"{i}_{side}.json"), "--device", device])[1]
+
+        card_out, launches = read_launches(counters, lambda: run("card"))
+        if launches != zero:
+            raise AssertionError(f"rest fuzz draw {i}: launches {launches}, expected none")
+        cpu_out = run("cpu")
+        if cmd == "deconvolve":
+            a, b = wavfile.read(out_dir / f"{i}_card.wav")[1], wavfile.read(out_dir / f"{i}_cpu.wav")[1]
+            ra, rb = (out_dir / f"{i}_card.wav").read_bytes(), (out_dir / f"{i}_cpu.wav").read_bytes()
+            reg = float(argv[argv.index("--regularization_relative") + 1])
+            limit = DECONVOLVE_TOL[reg][0] * float(np.abs(b).max())  # float32 on both sides
+            err = float(np.abs(a.astype(np.float64) - b).max()) if a.shape == b.shape else math.inf
+            if not (err <= limit and ra[: ra.index(b"data") + 8] == rb[: rb.index(b"data") + 8]):
+                raise AssertionError(f"rest fuzz draw {i}: deconvolved IR {a.shape} vs {b.shape}, error {err} > {limit}")
+            worst[cmd] = max(worst[cmd], err / limit)
+            continue
+        ours = json.loads((out_dir / f"{i}_card.json").read_text())
+        ref = json.loads((out_dir / f"{i}_cpu.json").read_text())
+        if json_skeleton(ours) != json_skeleton(ref):
+            raise AssertionError(f"rest fuzz draw {i}: JSON keys of the card run and the CPU run differ")
+        if cmd == "ir":
+            if ours != ref or card_out.replace(f"{i}_card", "") != cpu_out.replace(f"{i}_cpu", ""):
+                raise AssertionError(f"rest fuzz draw {i}: the card run and the CPU run differ")
+        elif cmd == "zplane":
+            def count(roots):  # a complex array is {"real", "imag"}, a real one a list
+                return None if roots is None else len(roots["real"] if isinstance(roots, dict) else roots)
+
+            if [count(c["zeros"]) for c in ours] != [count(c["zeros"]) for c in ref]:
+                raise AssertionError(f"rest fuzz draw {i}: zero counts differ")
+            found = compare_zplane(card_out.split("\n", 1)[1], cpu_out.split("\n", 1)[1], f"rest fuzz draw {i}")
+            if found:
+                flips.append({"draw": i, "flips": found})
+                log(f"  rest fuzz draw {i}: unstable-pole count differs between the card and the CPU: {found}")
+            worst[cmd] = max(worst[cmd], zplane_ratio(card_out.split("\n", 1)[1], cpu_out.split("\n", 1)[1]))
+        else:
+            tol = REST_TOLERANCES["exact_filter" if "--exact-grid" in argv else "filter"]
+            ref_text, got = cpu_out.split("\n", 1)[1], card_out.split("\n", 1)[1]
+            assert_summaries_agree(ref_text, got, *tol, f"rest fuzz draw {i}")
+            worst[cmd] = max(worst[cmd], summary_ratio(ref_text, got, *tol))
+
+    names = sorted(GEN_FLAGS)
+    for j in range(FUZZ_GEN_DRAWS):
+        cmd = "karplus_pluck" if j == 0 else names[int(rng.integers(len(names)))]
+        flags = [x for flag, values in GEN_FLAGS[cmd].items() for x in (flag, str(values[int(rng.integers(len(values)))]))]
+        common = ["--channel_mode", ("mono", "stereo")[int(rng.integers(2))],
+                  "--sample_rate_hz", str((48_000, 44_100)[int(rng.integers(2))])]
+        fuzz_log("gen", j, seed, " ".join([*common, cmd, *flags]))
+        dirs = {side: out_dir / "gen" / str(j) / side for side in ("card", "cpu")}
+
+        def gen(side):
+            return run_cli_text(torch, gen_main, ["--output-dir", str(dirs[side]), *common, "--device",
+                                                  "cuda" if side == "card" else "cpu", cmd, *flags])[1]
+
+        card_out, launches = read_launches(counters, lambda: gen("card"))
+        if launches != zero:
+            raise AssertionError(f"gen fuzz draw {j}: launches {launches}, expected none")
+        if card_out.replace(str(dirs["card"]), "D") != gen("cpu").replace(str(dirs["cpu"]), "D"):
+            raise AssertionError(f"gen fuzz draw {j}: stdout differs between the card and the CPU")
+        wavs = sorted(p.name for p in dirs["cpu"].glob("*.wav"))
+        if not wavs or sorted(p.name for p in dirs["card"].glob("*.wav")) != wavs:
+            raise AssertionError(f"gen fuzz draw {j}: WAV files {wavs}")
+        for name in wavs:
+            a, b = (dirs["card"] / name).read_bytes(), (dirs["cpu"] / name).read_bytes()
+            identical.append(a == b)
+            if a == b:
+                continue
+            x, y = wavfile.read(dirs["card"] / name)[1], wavfile.read(dirs["cpu"] / name)[1]
+            lsb = int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max()) if x.shape == y.shape else math.inf
+            if cmd != "karplus_pluck" or len(a) != len(b) or a[:a.index(b"data") + 8] != b[:b.index(b"data") + 8] \
+                    or lsb > 1:
+                raise AssertionError(f"gen fuzz draw {j}: {name} differs between the card and the CPU ({lsb} LSB)")
+            worst["gen"] = max(worst["gen"], float(lsb))
+    out = {"draws": len(FUZZ_REST_COMMANDS) + FUZZ_GEN_DRAWS, "worst_ratio_card_vs_cpu": worst,
+           "unstable_count_flips": flips, "gen_wavs_identical": f"{sum(identical)} of {len(identical)}",
+           "launches": {"edc": 0, "stft": 0}, "card": card_line()}
+    log(f"rest fuzz: worst ratio card vs cpu per command {worst}; gen WAVs byte-identical {out['gen_wavs_identical']}; "
+        f"{out['card']}")
+    return out
+
+
+def fuzz_mesh(torch, root: Path, dev, counters, rng, seed: int) -> dict:
+    """FUZZ_MESH_DRAWS meshes on the card, of 1 and 2 shards in turn, each
+    over a drawn number of the bundle's taps with a drawn EngineConfig and
+    chunk:
+    bit-equal to the single-device run with the same taps a chunk, K1 and
+    K2 launched per shard as expected_engine_launches says."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle_pipelined, make_mesh
+    from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
+
+    _meta, lengths, _names, n_max, loader = open_bundle_chunks_i16(root)
+    draws, totals = [], {"edc": 0, "stft": 0}
+    for i in range(FUZZ_MESH_DRAWS):
+        shards, taps, chunk = 1 + i % 2, int(rng.integers(1, 9)), int(rng.integers(1, 5))
+        fields = draw_engine_fields(rng)
+        fuzz_log("mesh", i, seed, {"shards": shards, "taps": taps, "chunk_taps": chunk, **fields})
+        cfg = EngineConfig(**fields)
+        lens = lengths[:taps]
+        per_shard = max(1, min(chunk, -(-taps // shards)))
+        mesh = make_mesh(devices=[dev] * shards)
+        sharded, launches = read_launches(
+            counters, lambda: analyze_bundle_pipelined(loader, lens, n_max, cfg, chunk, mesh=mesh, device=dev))
+        k1, k2 = expected_engine_launches(cfg, per_shard, n_max)
+        chunks = -(-taps // (per_shard * shards))
+        if (launches["edc"], launches["stft"]) != (chunks * shards * k1, chunks * shards * k2):
+            raise AssertionError(f"mesh fuzz draw {i}: launches {launches}, expected {chunks} chunks x {shards} "
+                                 f"shards x (K1 {k1}, K2 {k2})")
+        single = analyze_bundle_pipelined(loader, lens, n_max, cfg, per_shard, device=dev)
+        differing = sorted(k for k in single if not np.array_equal(sharded[k], single[k], equal_nan=True))
+        if sorted(sharded) != sorted(single) or differing:
+            raise AssertionError(f"mesh fuzz draw {i}: not bit-equal to the single-device run: {differing}")
+        for name in totals:
+            totals[name] += launches[name]
+        draws.append({"shards": shards, "taps": taps, "chunk_taps": chunk, "launches": launches})
+    return {"draws": draws, "bit_equal": True, "launches": totals}
+
+
 def fuzz_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dict, seed: int) -> dict:
     """Phase 12: K1 and K2 at drawn shapes and settings against their plain
     versions and the port's float64 oracle, then drawn engine configs and
@@ -2028,8 +2319,10 @@ def fuzz_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dic
     out["k2"] = fuzz_k2(torch, stft, oracle, dev, rng, seed)
     out["engine"] = fuzz_engine(torch, root, dev, counters, rng, seed)
     out["per_file"] = fuzz_per_file(torch, cli_main, root, counters, rng, seed)
+    out["rest"] = fuzz_rest(torch, cli_main, root, counters, rng, seed)
+    out["mesh"] = fuzz_mesh(torch, root, dev, counters, rng, seed)
     launches_by_path["fuzz"] = {
-        name: out["engine"]["launches"][name] + out["per_file"]["launches"][name] for name in ("edc", "stft")
+        name: sum(out[part]["launches"][name] for part in ("engine", "per_file", "mesh")) for name in ("edc", "stft")
     }
     out["seconds"] = time.perf_counter() - t0
     log(f"fuzz: {out}")
@@ -2109,7 +2402,7 @@ def main(argv=None) -> int:
     counters = (edc.EDC_KERNEL, stft.STFT_KERNEL)
     if args.fuzz_only:
         fuzz = fuzz_phase(torch, cli_main, root, dev, counters, {}, args.fuzz_seed)
-        check_modules(("oracle",), ("jax", "audio_analysis_tpu"))
+        check_modules(FUZZ_MODULES, ("jax", "audio_analysis_tpu"))
         print(json.dumps({"fuzz": fuzz}))
         print(card_line())
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2197,7 +2490,7 @@ def main(argv=None) -> int:
     # 12. the settings fuzz
     fuzz = fuzz_phase(torch, cli_main, root, dev, counters, launches_by_path, args.fuzz_seed)
     phases["fuzz_s"] = fuzz["seconds"]
-    check_modules(("oracle",), ("jax", "audio_analysis_tpu"))
+    check_modules(FUZZ_MODULES, ("jax", "audio_analysis_tpu"))
     log("phases " + json.dumps(phases))
 
     kernels = [

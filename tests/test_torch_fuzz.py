@@ -3,8 +3,9 @@ package's, and of the kernels' plain versions against the port's float64
 oracle, on the CPU (hypothesis).
 
 - Per-file settings: decay, rt60bands, fr, groupdelay, spectrogram,
-  waterfall, modalcloud and diffusion. Each example draws one analysis'
-  settings and one of three WAV files (the golden noise IR of
+  waterfall, modalcloud, diffusion and filter (zplane, deconvolve, the IR
+  view and the gen CLI: tests/test_torch_fuzz_rest.py). Each example draws
+  one analysis' settings and one of three WAV files (the golden noise IR of
   tests/golden_utils.py and the modal and damped IRs of
   tests/parity_matrix.py), carries the JAX settings across with
   `settings_from_jax`, and runs the port (device="cpu": the plain
@@ -194,6 +195,17 @@ SETTINGS = {
         "min_fit_points": st.sampled_from([8, 10]),
         "min_peak_db_above_floor": st.sampled_from([20.0, 30.0]),
     },
+    "filterplot": {
+        **_common(),
+        "analysis_duration_seconds": st.sampled_from([None, 0.3, 1.0]),
+        "use_hann_window": st.booleans(),
+        "magnitude_floor_db": st.sampled_from([-140.0, -120.0, -100.0]),
+        "f_min_hz": st.sampled_from([20.0, 50.0]),
+        "f_max_hz": st.sampled_from([10000.0, 20000.0]),
+        "phase_mode": st.sampled_from(["degrees", "radians"]),
+        "unwrap_phase": st.booleans(),
+        "exact_grid": st.booleans(),
+    },
     "diffusion": {
         **_common(),
         "window_seconds": st.sampled_from([0.01, 0.03, 0.05]),
@@ -259,14 +271,23 @@ test_waterfall_settings_match_jax = _module_test(
 test_modalcloud_settings_match_jax = _module_test(
     "modalcloud", [({"n_fft": 6000, "hop_length": 256}, "modal"), (NO_FRAME, "damped")])
 test_diffusion_settings_match_jax = _module_test("diffusion")
+test_filterplot_settings_match_jax = _module_test(
+    "filterplot", [({"exact_grid": True, "analysis_duration_seconds": 0.3, "phase_mode": "radians"}, "modal"),
+                   ({"use_hann_window": False, "unwrap_phase": False, "trim_to_peak": False}, "damped")])
 
 
 def test_every_per_file_setting_is_drawn():
-    """Every settings field of the eight analyses is drawn but rt60bands'
-    decay settings (the decay test draws those)."""
-    for module, strategies in SETTINGS.items():
-        cls = getattr(_port_module(module), MODULES[module][0])
-        fields = {f.name for f in dataclasses.fields(cls)} - {"decay_settings"}
+    """Every settings field of the nine analyses here, and of zplane,
+    deconvolve and the IR view (tests/test_torch_fuzz_rest.py), is drawn
+    but rt60bands' decay settings (the decay test draws those)."""
+    from test_torch_fuzz_rest import DECONVOLVE, IR_VIEW, ZPLANE
+
+    drawn = {**{(m, MODULES[m][0]): strategies for m, strategies in SETTINGS.items()},
+             ("zplane", "ZPlaneAnalysisSettings"): ZPLANE, ("deconvolve", "DeconvolveSettings"): DECONVOLVE,
+             ("impulse_response", "ImpulseResponseViewSettings"): IR_VIEW}
+    assert len(drawn) == 12
+    for (module, name), strategies in drawn.items():
+        fields = {f.name for f in dataclasses.fields(getattr(_port_module(module), name))} - {"decay_settings"}
         assert set(strategies) == fields, module
 
 

@@ -28,6 +28,21 @@ them to drawn settings:
   float32 noise level), and the aggregates consistent with each package's
   own bins (tests/_engine_parity.py says why each rule is needed).
 
+The mesh (engine/mesh.py) on the virtual CPU mesh (`make_mesh(n,
+platform="cpu")`: n shards run one after another): a drawn EngineConfig, a
+drawn shard count (1-4) and 1-5 drawn taps, fewer taps than shards among
+them. `analyze_batch_sharded` and `analyze_bundle_pipelined(mesh=...)` (a
+drawn chunk of taps a shard) against the port's single-device engine at
+1e-6, as tests/test_torch_mesh.py holds it, with the taps in the same
+batches as on the shards: on the CPU a tap's float32 result can depend on
+its batch's size (a tonal tap's group-delay 90th percentile moved by
+5.8e-5 relative between a batch of 1 and one of 2, where the float32
+phase at spectral nulls settles nothing; ROADMAP "Known"). For two
+draws also the sharded run against the JAX package's
+`analyze_batch_sharded` on as many of its virtual CPU devices, under the
+rules above (the per-tap outputs; the bundle aggregates are
+tests/test_torch_mesh.py's).
+
 Hypothesis runs derandomized (`derandomize=True`, no example database), so
 every run draws the same examples and counts the same; the known edges are
 `@example`s.
@@ -43,12 +58,21 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-from hypothesis import HealthCheck, example, given, settings  # noqa: E402
+from hypothesis import HealthCheck, Phase, example, given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 
 from audio_analysis_tpu.engine import EngineConfig as JaxEngineConfig  # noqa: E402
 from audio_analysis_tpu.engine import analyze_batch as jax_analyze_batch  # noqa: E402
-from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, config_from_jax  # noqa: E402
+from audio_analysis_tpu.engine.mesh import analyze_batch_sharded as jax_sharded  # noqa: E402
+from audio_analysis_tpu.engine.mesh import make_mesh as jax_make_mesh  # noqa: E402
+from audio_analysis_tpu_torch.engine import (  # noqa: E402
+    EngineConfig,
+    analyze_batch,
+    analyze_batch_sharded,
+    analyze_bundle_pipelined,
+    config_from_jax,
+    make_mesh,
+)
 from audio_analysis_tpu_torch.engine.config import TPU_ONLY_FIELDS  # noqa: E402
 from _engine_parity import assert_engines_agree as assert_engine_runs_agree  # noqa: E402
 from _engine_parity import conditioning_runs  # noqa: E402
@@ -266,3 +290,75 @@ def test_frame_blocks_split_by_taps_past_the_budget(monkeypatch):
     assert sorted(split) == sorted(one)
     for key in one:
         np.testing.assert_allclose(split[key], one[key], rtol=1e-6, atol=0, equal_nan=True, err_msg=key)
+
+
+# ------------------------------------------------------------------ mesh ----
+
+MESH = settings(FUZZ, max_examples=10)
+
+
+@st.composite
+def mesh_draws(draw):
+    """(shards, N, tap kinds, lengths, seed, chunk taps a shard)."""
+    shards = draw(st.integers(1, 4))
+    n = draw(st.sampled_from([1 << 14, 1 << 15]))
+    kinds = draw(st.lists(st.sampled_from(["modal", "damped", NOISE]), min_size=1, max_size=5))
+    lengths = [draw(st.one_of(st.just(n), st.integers(1, n))) for _ in kinds]
+    return shards, n, kinds, lengths, draw(st.integers(0, 2**31 - 1)), draw(st.integers(1, 3))
+
+
+def _as_numpy(res: dict) -> dict:
+    return {k: v.numpy() if torch.is_tensor(v) else np.asarray(v) for k, v in res.items()}
+
+
+def _blockwise(x, lens, cfg, block: int) -> dict:
+    """The single-device engine over consecutive blocks of `block` taps
+    (the last one padded by repeating tap 0, as the mesh pads), joined and
+    trimmed to the taps."""
+    b = x.shape[0]
+    pad = (-b) % block
+    xp = np.concatenate([x, np.repeat(x[:1], pad, axis=0)])
+    lp = np.concatenate([lens, np.repeat(lens[:1], pad)])
+    runs = [_port(xp[i:i + block], lp[i:i + block], cfg) for i in range(0, b + pad, block)]
+    return {k: np.concatenate([r[k] for r in runs])[:b] for k in runs[0]}
+
+
+@MESH
+@given(fields=engine_configs(), draw=mesh_draws())
+@example(fields=DEFAULTS, draw=(4, 1 << 14, ["modal", NOISE], [1 << 14, 9000], 1, 2))  # fewer taps than shards
+@example(fields={**DEFAULTS, "band_mode": "octave", "bands_decimate": True}, draw=(3, 1 << 14, [NOISE] * 5,
+                                                                                    [1 << 14] * 5, 2, 1))
+def test_mesh_matches_single_device(fields, draw):
+    shards, n, kinds, lengths, seed, chunk = draw
+    x, lens = _taps(n, kinds, lengths, seed)
+    cfg = EngineConfig(**fields)
+    mesh = make_mesh(shards, platform="cpu")
+    per_shard = max(1, min(chunk, -(-len(kinds) // shards)))
+    pairs = [
+        (_as_numpy(analyze_batch_sharded(mesh, x, lens, cfg, include_bundle_aggregates=False)),
+         _blockwise(x, lens, cfg, -(-len(kinds) // shards))),
+        (_as_numpy(analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lens, n, cfg, chunk, mesh=mesh)),
+         _as_numpy(analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lens, n, cfg, per_shard, device="cpu"))),
+    ]
+    for res, one in pairs:
+        assert sorted(res) == sorted(one)
+        for key, value in one.items():
+            assert res[key].dtype == value.dtype and res[key].shape == value.shape, key
+            np.testing.assert_allclose(res[key], value, rtol=1e-6, atol=1e-6, equal_nan=True, err_msg=key)
+
+
+@settings(MESH, max_examples=1, phases=[Phase.explicit, Phase.generate])
+@given(fields=engine_configs(), draw=mesh_draws())
+@example(fields={**DEFAULTS, "band_mode": "three", "modal_n_fft": 4096},
+         draw=(2, 1 << 14, [NOISE, "modal", NOISE], [1 << 14, 1 << 14, 12000], 3, 1))
+def test_mesh_matches_the_jax_mesh(fields, draw):
+    shards, n, kinds, lengths, seed, _chunk = draw
+    x, lens = _taps(n, kinds, lengths, seed)
+    jc = dataclasses.replace(JaxEngineConfig(), **fields)
+    ref = {k: np.asarray(v) for k, v in jax_sharded(jax_make_mesh(shards, platform="cpu"), x, lens, jc).items()}
+    jax.clear_caches()
+    cfg = config_from_jax(jc)
+    got = _as_numpy(analyze_batch_sharded(make_mesh(shards, platform="cpu"), x, lens, cfg,
+                                          include_bundle_aggregates=False))
+    ref = {k: v for k, v in ref.items() if k in got}
+    assert_engines_agree(ref, got, conditioning_runs(_port, x, lens, cfg), kinds)

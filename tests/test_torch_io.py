@@ -19,8 +19,10 @@ import pytest
 
 from audio_analysis_tpu.io import bundle as jax_bundle
 from audio_analysis_tpu.io import native as jax_native
+from audio_analysis_tpu.io import wav as jax_wav
 from audio_analysis_tpu_torch.io import bundle as torch_bundle
 from audio_analysis_tpu_torch.io import native as torch_native
+from audio_analysis_tpu_torch.io import wav as torch_wav
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 48_000
@@ -48,6 +50,9 @@ def bundles(tmp_path_factory):
 
 @pytest.fixture(params=["native", "scipy"])
 def decoder(request, monkeypatch):
+    # empty read caches: every case decodes through the decoder it names
+    monkeypatch.setattr(torch_wav, "_RAW_CACHE", {})
+    monkeypatch.setattr(jax_wav, "_RAW_CACHE", {})
     if request.param == "native":
         if not torch_native.available():
             pytest.skip("the native decoder (make -C cpp) did not build")
