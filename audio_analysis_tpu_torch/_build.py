@@ -27,6 +27,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -54,11 +55,21 @@ _lib: Optional[ctypes.CDLL] = None
 
 class LaunchCounter:
     """Counts the launches of one kernel: its wrapper adds one where it
-    launches the kernel, and nowhere else."""
+    launches the kernel, and nowhere else (a CUDA graph's replay, which
+    runs no wrapper, adds what its capture launched: engine/graphs.py)."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self.launches = 0
+        _counters.add(self)
+
+
+_counters: "weakref.WeakSet[LaunchCounter]" = weakref.WeakSet()
+
+
+def launch_counters() -> list:
+    """Every live LaunchCounter."""
+    return list(_counters)
 
 
 def _sources() -> list:

@@ -1,5 +1,7 @@
-"""The fused batched analysis engine, its bundle host entries, the device
-mesh (engine.mesh) and the multi-host job (engine.distributed)."""
+"""The fused batched analysis engine, its bundle host entries, the CUDA
+graphs its step replays on the card (engine.graphs; `eager()` turns them
+off), the device mesh (engine.mesh) and the multi-host job
+(engine.distributed)."""
 
 from audio_analysis_tpu_torch.engine.batch import (  # noqa: F401
     analyze_batch,
@@ -10,6 +12,7 @@ from audio_analysis_tpu_torch.engine.batch import (  # noqa: F401
     unpack_flat,
 )
 from audio_analysis_tpu_torch.engine.config import EngineConfig, config_from_jax  # noqa: F401
+from audio_analysis_tpu_torch.engine.graphs import eager  # noqa: F401
 from audio_analysis_tpu_torch.engine.distributed import (  # noqa: F401
     analyze_bundle_multi_host,
     initialize_multi_host,

@@ -14,7 +14,10 @@ Shapes: samples (B, C, N) float32 zero-padded or raw int16 PCM (scaled by
 k+1 decodes and uploads on a worker thread (pinned host memory, a side
 stream, an event the compute stream waits on) while chunk k computes, and
 each chunk comes back in one packed device-to-host copy. On a mesh
-(engine.mesh) each chunk is cut into one block per device.
+(engine.mesh) each chunk is cut into one block per device. On a CUDA
+device `analyze_batch_flat`, the step every chunk runs, replays one CUDA
+graph per chunk shape and config (engine.graphs) once replays of it are in
+sight, as the JAX engine's step is one jit-compiled program.
 """
 
 from __future__ import annotations
@@ -22,12 +25,12 @@ from __future__ import annotations
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
-from functools import lru_cache
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from audio_analysis_tpu_torch.engine import graphs
 from audio_analysis_tpu_torch.engine.config import EngineConfig
 from audio_analysis_tpu_torch.ops import (
     dbfit,
@@ -40,6 +43,7 @@ from audio_analysis_tpu_torch.ops import (
     trim,
 )
 from audio_analysis_tpu_torch.ops.common import (
+    device_cache,
     hann_window_dynamic,
     nanmax,
     nanmedian,
@@ -94,7 +98,7 @@ def modal_tables(config: EngineConfig) -> Tuple[np.ndarray, np.ndarray, int | No
     return bin_matrix, nonempty, k_out
 
 
-@lru_cache(maxsize=4)
+@device_cache(maxsize=4)
 def _device_tables(config: EngineConfig, n: int, device: torch.device) -> Dict:
     """The constant tables of one (config, N) on the device, uploaded once:
     an upload from pageable host memory would stall every later chunk's
@@ -418,10 +422,21 @@ def analyze_batch(
 
 
 def analyze_batch_flat(
-    samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig = EngineConfig()
+    samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig = EngineConfig(), calls_ahead: int = 0
 ):
     """`analyze_batch` packed into one float32 vector on the device, with
-    its (key, shape, numpy dtype) layout for `unpack_flat`."""
+    its (key, shape, numpy dtype) layout for `unpack_flat`. On a CUDA
+    device outside `graphs.eager()` a key with a CUDA graph replays it; a
+    key without one runs eagerly and is captured after where replays are
+    in sight: `calls_ahead` (how many more calls of the same shapes and
+    config the caller makes right after this one) reaches
+    `graphs.MIN_CALLS_AHEAD`, or the key ended an earlier call."""
+    if graphs.enabled(samples.device):
+        return graphs.STEP_GRAPHS.run(_analyze_batch_flat, samples, lengths, config, calls_ahead)
+    return _analyze_batch_flat(samples, lengths, config)
+
+
+def _analyze_batch_flat(samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig):
     out = analyze_batch(samples, lengths, config)
     keys = sorted(out)
     spec = [(k, tuple(out[k].shape), _NP_DTYPES[out[k].dtype]) for k in keys]
@@ -568,7 +583,8 @@ def analyze_bundle_pipelined(
                         compute.wait_event(event)
                         block.record_stream(compute)
             flat, spec = analyze_batch_sharded_flat(
-                shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config
+                shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config,
+                chunks_ahead=len(starts) - 1 - i,
             )
             flats.append(flat)
             dispatch_s += time.perf_counter() - t0

@@ -7,6 +7,9 @@ taps and runs the same `analyze_batch` as the single-device path, kernels
 included, on its own device. Shards are dispatched one after another from
 one thread; `analyze_batch` has no host sync before the fetch, so the
 cards overlap. The per-shard results come back to the mesh's first device.
+On CUDA, `analyze_batch_sharded_flat` runs each shard's step through the
+step graphs (engine.graphs): one graph per device, shared by the shards on
+that device, replayed one after another.
 
 The JAX mesh swaps both Pallas kernels for jnp stand-ins under
 `shard_map` (Pallas outputs carry no vma metadata there). That is a JAX
@@ -161,7 +164,8 @@ def analyze_batch_sharded(
     return out
 
 
-def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig = EngineConfig()):
+def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig = EngineConfig(),
+                               chunks_ahead: int = 0):
     """
     A sharded chunk packed into one float32 vector on the mesh's first
     device, laid out exactly like `analyze_batch_flat` of the whole chunk
@@ -169,15 +173,18 @@ def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig 
     `unpack_flat` / `fetch_packed` read it unchanged. Each shard packs its
     own block; the blocks are regrouped key by key after the gather. The
     tap count must be a multiple of the shard count (callers pad); no
-    bundle aggregates.
+    bundle aggregates. `chunks_ahead`: how many more chunks of this shape
+    the caller runs right after this one (each shard's step counts the
+    calls of its key still to come, engine.graphs).
     """
     if not isinstance(batch, (list, tuple)) and np.shape(batch)[0] % len(mesh):
         raise ValueError(f"batch of {np.shape(batch)[0]} taps not divisible by mesh taps={len(mesh)} (pad the chunk)")
     samples, lens, _b = _sharded_inputs(mesh, batch, lengths)
     flats = []
-    for d, x, n in zip(mesh, samples, lens):
+    for i, (d, x, n) in enumerate(zip(mesh, samples, lens)):
+        ahead = chunks_ahead * mesh.count(d) + mesh[i + 1:].count(d)
         with _on_device(d):
-            flat, spec = analyze_batch_flat(x, n, config)
+            flat, spec = analyze_batch_flat(x, n, config, ahead)
         flats.append(flat.to(mesh[0], non_blocking=True))
     if len(flats) == 1:
         return flats[0], spec

@@ -7,9 +7,49 @@ as an int32 `length` tensor broadcastable over the batch dims
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
 
 import torch
+
+_held = threading.local()
+
+
+def device_cache(maxsize: int):
+    """`functools.lru_cache` for constants a function uploads to a device
+    once. While `holding(into)` is active on this thread (a CUDA graph's
+    capture, engine/graphs.py), every value returned is also appended to
+    `into`: a graph reads the constant's memory on every replay, so an
+    eviction from this cache must not free it under the graph."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            value = cached(*args)
+            into = getattr(_held, "into", None)
+            if into is not None:
+                into.append(value)
+            return value
+
+        return call
+
+    return wrap
+
+
+@contextlib.contextmanager
+def holding(into: list):
+    """Collect into `into` every `device_cache` value returned on this
+    thread inside the block."""
+    outer = getattr(_held, "into", None)
+    _held.into = into
+    try:
+        yield
+    finally:
+        _held.into = outer
 
 
 def valid_mask(n: int, length: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

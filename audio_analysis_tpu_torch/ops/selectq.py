@@ -8,6 +8,8 @@ A per-row sort with invalid elements set to +inf, then a gather of the
 order statistics at floor(r) and ceil(r) for the fractional rank
 r = q (n_valid - 1). torch.nanquantile is not used: it refuses inputs above
 2^24 elements, and the group-delay plane of one bundle chunk is larger.
+The fractions q live on the device once per (qs, device): the engine step
+makes no host-to-device copy, so it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,6 +17,14 @@ from __future__ import annotations
 import math
 
 import torch
+
+from audio_analysis_tpu_torch.ops.common import device_cache
+
+
+@device_cache(maxsize=8)
+def _fractions(qs: tuple, device: torch.device) -> torch.Tensor:
+    """qs / 100 as a float32 tensor on the device."""
+    return torch.tensor(qs, dtype=torch.float32, device=device) / 100.0
 
 
 def masked_percentiles(x: torch.Tensor, valid: torch.Tensor, qs: tuple) -> torch.Tensor:
@@ -24,8 +34,7 @@ def masked_percentiles(x: torch.Tensor, valid: torch.Tensor, qs: tuple) -> torch
     ordered = torch.sort(keys, dim=-1).values
     n_valid = ok.sum(dim=-1)
 
-    qarr = torch.tensor(qs, dtype=torch.float32, device=x.device) / 100.0
-    r = qarr * torch.clamp(n_valid[..., None] - 1, min=0).to(torch.float32)
+    r = _fractions(tuple(qs), x.device) * torch.clamp(n_valid[..., None] - 1, min=0).to(torch.float32)
     k_lo = torch.floor(r).to(torch.int64)
     k_hi = torch.ceil(r).to(torch.int64)
     frac = r - k_lo.to(torch.float32)

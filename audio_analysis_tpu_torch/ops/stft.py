@@ -25,14 +25,13 @@ its linear floor and every bin, then 20 log10, invalid frames at the floor.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from audio_analysis_tpu_torch import _build
-from audio_analysis_tpu_torch.ops.common import db_from_magnitude
+from audio_analysis_tpu_torch.ops.common import db_from_magnitude, device_cache
 
 STFT_KERNEL = _build.LaunchCounter("stft")
 
@@ -77,13 +76,13 @@ def rfft_freqs_hz(n_fft: int, sample_rate_hz: int) -> np.ndarray:
     return np.fft.rfftfreq(n_fft, d=1.0 / float(sample_rate_hz)).astype(np.float32)
 
 
-@lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _window(n_fft: int, use_hann_window: bool, device: torch.device) -> torch.Tensor:
     w = hann_window(n_fft) if use_hann_window else np.ones(n_fft, np.float32)
     return torch.from_numpy(w).to(device)
 
 
-@lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _twiddle(n_fft: int, device: torch.device) -> torch.Tensor:
     """exp(-2 pi i k / n_fft) for k in [0, n_fft/2], computed in float64 and
     rounded to complex64."""

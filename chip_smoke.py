@@ -29,29 +29,54 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      (bench.py's recipe) under build/;
   4. drive `bundle --no-plots` of the port through its CLI entry, 8 taps
      per chunk, with the kernels' launch counters set to 0 just before and
-     read just after (each must be > 0); then warm runs with the kernels
-     and with the plain versions swapped in, alternating;
+     read just after (each must be > 0): the process's first bundle of two
+     chunks eager (no capture: one call of the key ahead, below
+     graphs.MIN_CALLS_AHEAD); the second run, the key having ended a call,
+     captures its step into a CUDA graph (engine/graphs.py) after its first
+     chunk and replays it for the second (1 capture, 1 replay, the
+     capture's host ms, the same launches); then warm runs in turns:
+     through the graphs (both chunks replayed; the first run after eager()
+     captures again and is kept apart as `recapture`), under
+     `engine.eager()`, and with the plain versions swapped in (always
+     under eager(): a graph captured with the kernels would replay them);
   5. check the run: every tap's markdown and bundle_metrics.json exist,
      metrics are finite where their *_ok flag is set, and the same run with
      the plain torch versions swapped in on the card agrees (markdown line
      by line, numbers within 2 units of the printed precision + 2e-3
      relative; JSON integers and flags exact, floats within 1e-4, per-bin
-     modal fits 1e-2, group delay 1e-3 relative);
-  6. where one chunk's device time goes (profiler device-busy time, each
-     block toggled off in turn, and the bands block with --bands-decimate),
-     and the bundle under other loads: octave and third-octave bands,
-     every chunk decoded and uploaded again, and the device's busy share of
-     a warm run;
+     modal fits 1e-2, group delay 1e-3 relative); the graph run is
+     bit-equal to the eager() kernel run (every markdown byte, every
+     bundle_metrics.json value but the timings);
+  6. where one chunk's device time goes (profiler device-busy time of the
+     eager step, each block toggled off in turn, and the bands block with
+     --bands-decimate; then the chunk's graph: capture ms, one replay's
+     CUDA-event elapsed and device-busy ms), and the bundle under other
+     loads: octave and third-octave bands (a graph each: none cold, 1
+     capture and 5 replays in 3 warm runs, and a profiled warm octave
+     run), every chunk decoded and uploaded again, the graphs' memory pool
+     with three keys live, and a warm run under torch.profiler through the
+     graphs and under eager(): the device's busy share and events, the
+     host's launch calls (cudaGraphLaunch, cudaLaunchKernel, copies) and
+     the device events inside graph launches, which must hold exactly the
+     K1 and K2 launches the counters add in that run; the cold bundle in
+     fresh processes as the policy runs it, under eager() and captured
+     after its first chunk (each twice; the captured run bit-equal to the
+     eager() run); and the capture's break-even on a 64-tap bundle (8
+     chunks: eager, captured after the first chunk, all replayed);
   7. the rest of the engine fast path through the CLI entry, each command
      with the launch counters set to 0 before it and read after it:
      `bundle --no-plots --bands-decimate` (8 K1 launches for 2 chunks, the
      kernel run against the plain run, its band fits against the full-rate
-     run logged), third-octave with decimation, `--compare <own reports>
-     --fail-on-change` on an unchanged rerun (exit 0, no change flagged)
-     and the `compare` subcommand, `batch --no-plots` over 4 tap WAVs
-     (agrees with the bundle run), and `watch --max-bundles 2` over two
-     copies of a 4-tap bundle with one tap re-recorded (two indexes, the
-     second flagging a change, two event-log lines);
+     run logged, a profiled warm run whose device events inside graph
+     launches hold exactly its 8 and 4 counted launches), third-octave
+     with decimation, `--compare <own reports> --fail-on-change` on an
+     unchanged rerun (exit 0, no change flagged) and the `compare`
+     subcommand, `batch --no-plots` over 4 tap WAVs (agrees with the
+     bundle run), and `watch --max-bundles 2` over two copies of a 4-tap
+     bundle with one tap re-recorded (two indexes, the second flagging a
+     change, two event-log lines); batch runs three times (eager, then
+     captured after its one chunk, then a replay), and both watched
+     bundles replay the batch's graph;
   8. the per-file subcommands through the CLI entry on the card
      (`<cmd> --input X.wav --no_show --json out.json`): decay (also
      --smoothing 480), rt60bands (three, octave, third), fr, groupdelay,
@@ -109,14 +134,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  11. the scale-out engine (rank files under build/chip_smoke_multi_device/):
      (a) `analyze_bundle_pipelined` over the bundle on a mesh of two shards
      on one card (`make_mesh(devices=[cuda:0, cuda:0])`, 8 taps a shard:
-     one chunk, K1 and K2 launched 4 and 4, exactly), cold, warm beside the
-     single-device run, and with the plain versions swapped in; the mesh
-     run against the single-device run (the largest difference per key
-     reported) and against the plain run, under the JSON limits of phase
-     5; (b) a two-rank `bundle --multi-host` job through the CLI entry
+     one chunk, K1 and K2 launched 4 and 4, exactly; each shard a replay
+     of the single-device chunk's graph), cold, warm beside the
+     single-device run, under eager() (bit-equal) and with the plain
+     versions swapped in; the mesh run against the single-device run (the
+     largest difference per key reported) and against the plain run,
+     under the JSON limits of phase 5; (b) a two-rank `bundle --multi-host` job through the CLI entry
      (`--coordinator 127.0.0.1:<free> --num-processes 2 --process-id i`),
      both ranks on cuda:0, 8 taps a rank, each rank running it cold and
-     then warm in one process (K1 and K2 2 and 2 a run, exactly; engine
+     then warm twice in one process (K1 and K2 2 and 2 a run, exactly; the
+     cold run eager, its one chunk having no call ahead, the first warm
+     run capturing the rank's chunk, the second replaying it; engine
      seconds, peak memory, bytes sent through the gathers; no jax and nothing of the JAX
      package loaded), every rank with a timeout; only rank 0 prints the
      index line; the per-tap markdown bodies and bundle_metrics.json
@@ -141,7 +169,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      through `analyze_bundle_pipelined` on the bundle's first 8 taps, the
      kernel run against the plain run under phase 5's limits with
      tests/_engine_parity.py's conditioning runs, K1 / K2 launches exactly
-     as the config implies, and a frame block longer than the signal
+     as the config implies (captured, then replayed with the same
+     launches, the replay bit-equal to the eager() run), and a frame block longer than the signal
      raising a ValueError before any launch; ten drawn flag sets of decay,
      rt60bands, spectrogram, waterfall and modalcloud through the CLI entry
      on the bundle's first tap, the kernel run against the plain run
@@ -170,6 +199,7 @@ There is no CPU fallback: without CUDA the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -526,6 +556,30 @@ def run_cli(main, root: Path, subdir: str, *extra: str) -> float:
     return time.perf_counter() - t0
 
 
+def graph_runs(fn) -> tuple:
+    """(fn(), the engine step's graph captures, replays and evictions in it)."""
+    from audio_analysis_tpu_torch.engine import graphs
+
+    before = graphs.STEP_GRAPHS.stats()
+    result = fn()
+    after = graphs.STEP_GRAPHS.stats()
+    return result, {k: after[k] - before[k] for k in ("captures", "replays", "evictions")}
+
+
+def check_bit_equal(root: Path, ours: str, ref: str, taps, where: str) -> None:
+    """Two runs' reports identical: every tap's markdown byte for byte and
+    bundle_metrics.json but its timings (taps, channels, aggregates, every
+    metric, NaN included)."""
+    a, b = (json.loads((root / d / "bundle_metrics.json").read_text()) for d in (ours, ref))
+    differing = [k for k in b["metrics"] if json.dumps(a["metrics"].get(k)) != json.dumps(b["metrics"][k])]
+    differing += [k for k in ("taps", "channels", "bundle_median_t30") if json.dumps(a[k]) != json.dumps(b[k])]
+    differing += [t for t in taps if (root / ours / t / f"{t}_report.md").read_bytes()
+                  != (root / ref / t / f"{t}_report.md").read_bytes()]
+    if differing or list(a["metrics"]) != list(b["metrics"]):
+        raise AssertionError(f"{where}: not bit-equal: {differing}")
+    log(f"{where}: bit-equal ({len(taps)} taps' markdown, {len(b['metrics'])} metrics)")
+
+
 def device_busy(torch, fn) -> dict:
     """One fn() under torch.profiler: its wall seconds, the device-busy ms
     (the union of the intervals in which the card ran a kernel or a copy),
@@ -561,17 +615,48 @@ def device_busy(torch, fn) -> dict:
         "busy_share": busy / 1e3 / (wall * 1e3),
         "device_events": len(events),
         "top_ms": [[name[:60], ms] for name, ms in top],
+        **host_launches(prof),
     }
+
+
+# host-side calls that put work on the device
+HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(prof) -> dict:
+    """From one torch.profiler trace: the host-side launch calls by name,
+    and the device events that ran inside graph launches (their correlation
+    id is a cudaGraphLaunch's), K1's and K2's among them."""
+    calls = {name: 0 for name in HOST_LAUNCH_CALLS}
+    graph_launches = set()
+    events = list(prof.profiler.kineto_results.events())
+    for e in events:
+        if e.device_type().name == "CPU" and e.name() in calls:
+            calls[e.name()] += 1
+            if e.name() == "cudaGraphLaunch":
+                graph_launches.add(e.correlation_id())
+    in_graphs = {"all": 0, "edc": 0, "stft": 0}
+    for e in events:
+        if e.device_type().name == "CUDA" and e.correlation_id() in graph_launches:
+            in_graphs["all"] += 1
+            for kernel, name in (("edc", "edc_kernel"), ("stft", "stft_mag_kernel")):
+                in_graphs[kernel] += name in e.name()
+    return {"host_calls": calls, "device_events_in_graphs": in_graphs}
 
 
 def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
     """Where one 8-tap chunk's device time goes. `chunk_elapsed_ms` is the
-    stream's elapsed time (CUDA events), which also holds the device's idle
-    gaps while the host enqueues the eager ops; the other entries are
-    device-busy time from torch.profiler: all blocks on, and each block as
-    the drop when it alone is toggled off."""
+    stream's elapsed time (CUDA events) of the eager step, which also holds
+    the device's idle gaps while the host enqueues the eager ops; the
+    `*_busy_ms` entries are device-busy time from torch.profiler: all
+    blocks on, and each block as the drop when it alone is toggled off
+    (eager `analyze_batch`); then the step's graph: `capture_ms` and one
+    replay's `chunk_replay_elapsed_ms` and `chunk_replay_busy_ms`."""
     import numpy as np
 
+    from audio_analysis_tpu_torch.engine import graphs
+    from audio_analysis_tpu_torch.engine.batch import analyze_batch_flat
     from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
 
     _meta, lengths, _names, _n_max, loader = open_bundle_chunks_i16(root)
@@ -607,25 +692,226 @@ def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
             run_modal=False, run_diffusion=False,
         )
     )
+    # the chunk as the bundle runs it: its graph captured (host ms of the
+    # capture and instantiation), then one replay's stream-elapsed time
+    # (the static inputs' copies and the output's clone included) and
+    # device-busy time
+    graphs.STEP_GRAPHS.clear()
+    analyze_batch_flat(pcm, lens, base, graphs.MIN_CALLS_AHEAD)
+    out["capture_ms"] = graphs.STEP_GRAPHS.capture_ms(graphs.STEP_GRAPHS.key(pcm, lens, base))
+    out["chunk_replay_elapsed_ms"] = time_ms(lambda: analyze_batch_flat(pcm, lens, base), reps=5)
+    out["chunk_replay_busy_ms"] = device_busy(torch, lambda: analyze_batch_flat(pcm, lens, base))["device_busy_ms"]
     return out
 
 
-def other_loads(torch, cli_main, root: Path, dev) -> dict:
+def graph_pool_gib(torch, dev) -> dict:
+    """GiB the allocator holds on `dev` in the pool the live step graphs
+    share (`live`) and in pools no graph uses any more, freed at the next
+    empty_cache or allocation that runs short (`unused`)."""
+    from audio_analysis_tpu_torch.engine import graphs
+
+    pool = graphs.STEP_GRAPHS.pool(dev)
+    out = {"live": 0.0, "unused": 0.0}
+    for seg in torch.cuda.memory_snapshot():
+        seg_pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        if seg["device"] == dev.index and seg_pool != (0, 0):
+            out["live" if pool is not None and seg_pool == tuple(pool) else "unused"] += seg["total_size"] / 2**30
+    return out
+
+
+def profiled_launches(torch, counters, fn, where: str) -> dict:
+    """fn() under torch.profiler with the launch counters read around it;
+    every kernel launch the counters add must be a device event inside a
+    graph launch (fn replays every chunk), K1's and K2's counted apart."""
+    prof, launches = count_launches(counters, lambda: device_busy(torch, fn))
+    in_graphs = prof["device_events_in_graphs"]
+    if (in_graphs["edc"], in_graphs["stft"]) != (launches["edc"], launches["stft"]):
+        raise AssertionError(f"{where}: counted launches {launches}, device events inside graph launches {in_graphs}")
+    return {**prof, "launches": launches}
+
+
+# One cold run in a fresh process (phase 6's cold split): `bundle
+# --no-plots` of the 16-tap bundle through the CLI entry ("bundle16", 2
+# chunks), or `analyze_bundle` of its taps four times over ("taps64", 8
+# chunks); the step as the policy decides ("default"), under eager()
+# ("eager"), or captured after its first chunk whatever the calls ahead
+# ("capture"). Each step call's host ms and the capture's (`_add`, the
+# static inputs and the pool included) split the run.
+COLD_CODE = r"""
+import contextlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from audio_analysis_tpu_torch.cli.analyse_cli import main
+from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle, graphs, mesh
+from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
+
+out_json, workload, mode, root, subdir = sys.argv[2:7]
+torch.empty(0, device="cuda:0")  # the context, outside the wall
+if mode == "capture":
+    graphs.STEP_GRAPHS.min_calls_ahead = 0
+steps_ms, adds_ms = [], []
+real_step, real_add = mesh.analyze_batch_flat, graphs.StepGraphs._add
+
+def timed_step(*args):
+    t0 = time.perf_counter()
+    result = real_step(*args)
+    steps_ms.append((time.perf_counter() - t0) * 1e3)
+    return result
+
+def timed_add(self, *args):
+    t0 = time.perf_counter()
+    real_add(self, *args)
+    adds_ms.append((time.perf_counter() - t0) * 1e3)
+
+mesh.analyze_batch_flat, graphs.StepGraphs._add = timed_step, timed_add
+if workload == "taps64":
+    _meta, lengths, _names, _n, loader = open_bundle_chunks_i16(root)
+    taps, lens = np.concatenate([loader(0, len(lengths))] * 4), np.concatenate([lengths] * 4)
+    run = lambda: analyze_bundle(taps, lens, EngineConfig(), 8, device="cuda:0")
+else:
+    run = lambda: main(["bundle", "--input", root, "--no-plots", "--reports-subdir", subdir])
+before = graphs.STEP_GRAPHS.stats()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+    run()
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+after = graphs.STEP_GRAPHS.stats()
+keys = graphs.STEP_GRAPHS.keys()
+json.dump({"wall_s": wall, "graphs": {k: after[k] - before[k] for k in ("captures", "replays")},
+           "capture_ms": graphs.STEP_GRAPHS.capture_ms(keys[0]) if keys else None,
+           "step_host_ms": steps_ms, "add_host_ms": adds_ms,
+           "peak_device_memory_gib": torch.cuda.max_memory_allocated(0) / 2**30,
+           "peak_device_memory_reserved_gib": torch.cuda.max_memory_reserved(0) / 2**30}, open(out_json, "w"))
+"""
+
+
+def cold_split(torch, root: Path) -> dict:
+    """Cold runs in fresh processes, one after another on the card: the
+    16-tap bundle through the CLI (2 chunks) and 64 taps through
+    `analyze_bundle` (8 chunks), each as the capture policy runs it, under
+    eager(), and captured after its first chunk; each mode twice, in the
+    order default, eager, capture, capture, eager, default. Wall of the
+    call (the CUDA context made before it), each step call's host ms, the
+    capture's, and the bundle's `h2d_dispatch_s`; the captured bundle
+    bit-equal to the eager() one."""
+    import os
+
+    work = REPO / "build" / "chip_smoke_cold"
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = {}
+    for workload, chunks in (("bundle16", TAPS // CHUNK_TAPS), ("taps64", 4 * TAPS // CHUNK_TAPS)):
+        expected = {"default": (0, 0) if chunks - 1 < graphs_min_calls_ahead() else (1, chunks - 1),
+                    "eager": (0, 0), "capture": (1, chunks - 1)}
+        out[workload] = {mode: [] for mode in expected}
+        for i, mode in enumerate(("default", "eager", "capture", "capture", "eager", "default")):
+            result = work / f"{workload}_{i}.json"
+            subdir = f"reports_cold_{mode}"
+            run_processes([[sys.executable, "-c", COLD_CODE, str(REPO), str(result), workload, mode, str(root),
+                            subdir]], env)
+            one = json.loads(result.read_text())
+            if (one["graphs"]["captures"], one["graphs"]["replays"]) != expected[mode]:
+                raise AssertionError(f"cold {workload} {mode} run: graphs {one['graphs']}, expected {expected[mode]}")
+            if workload == "bundle16":
+                one["h2d_dispatch_s"] = json.loads((root / subdir / "bundle_metrics.json").read_text())[
+                    "phases"].get("h2d_dispatch_s")
+            out[workload][mode].append(one)
+    names = json.loads((root / "reports_cold_eager" / "bundle_metrics.json").read_text())["taps"]
+    check_bit_equal(root, "reports_cold_capture", "reports_cold_eager", names, "cold captured run vs cold eager() run")
+    log("cold split (fresh processes): " + json.dumps(
+        {w: {m: [round(r["wall_s"], 4) for r in v] for m, v in modes.items()} for w, modes in out.items()}))
+    return out
+
+
+def graphs_min_calls_ahead() -> int:
+    from audio_analysis_tpu_torch.engine import graphs
+
+    return graphs.MIN_CALLS_AHEAD
+
+
+def capture_break_even(torch, root: Path, dev) -> dict:
+    """The capture policy's threshold from this card: a bundle of 64 taps
+    (the bundle's 16 four times over, 8 chunks of 8, the BASELINE bundle's
+    size) through `analyze_bundle`, in 3 rounds of: under eager() (8 eager
+    chunks), with the graph cleared (the first chunk eager, then the
+    capture, 7 replays) and warm (8 replays). One replayed chunk saves
+    `saving_ms` = (eager - warm) / 8; the capture costs `capture_cost_ms` =
+    cleared - warm - saving_ms; it pays over `break_even_calls` =
+    capture_cost_ms / saving_ms replays (graphs.MIN_CALLS_AHEAD)."""
+    import numpy as np
+
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle, graphs
+    from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
+
+    _meta, lengths, _names, n_max, loader = open_bundle_chunks_i16(root)
+    taps = np.concatenate([loader(0, TAPS)] * 4)
+    lens = np.concatenate([lengths] * 4)
+    chunks = len(taps) // CHUNK_TAPS
+
+    def wall() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        analyze_bundle(taps, lens, EngineConfig(), CHUNK_TAPS, device=dev)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {"taps": len(taps), "chunks": chunks, "eager_s": [], "capture_s": [], "warm_s": []}
+    for _ in range(3):
+        with graphs.eager():
+            out["eager_s"].append(wall())
+        graphs.STEP_GRAPHS.clear()
+        t, ran = graph_runs(wall)
+        if (ran["captures"], ran["replays"]) != (1, chunks - 1):
+            raise AssertionError(f"break-even: graphs {ran} in a run with the graph cleared")
+        out["capture_s"].append(t)
+        t, ran = graph_runs(wall)
+        if (ran["captures"], ran["replays"]) != (0, chunks):
+            raise AssertionError(f"break-even: graphs {ran} in a warm run")
+        out["warm_s"].append(t)
+    eager_s, capture_s, warm_s = (statistics.median(out[k]) for k in ("eager_s", "capture_s", "warm_s"))
+    out["saving_ms"] = (eager_s - warm_s) / chunks * 1e3
+    out["capture_cost_ms"] = (capture_s - warm_s) * 1e3 - out["saving_ms"]
+    out["break_even_calls"] = out["capture_cost_ms"] / out["saving_ms"] if out["saving_ms"] > 0 else None
+    out["min_calls_ahead"] = graphs.MIN_CALLS_AHEAD
+    log(f"capture break-even over {chunks} chunks: " + json.dumps(out))
+    return out
+
+
+def other_loads(torch, cli_main, root: Path, dev, counters) -> dict:
     """The same bundle under other loads: the octave and third-octave band
-    modes (cold, 3 warm, peak memory), every chunk decoded and uploaded
-    again (3 runs), and the device's busy share of one warm run."""
+    modes (cold: eager; 3 warm, the first capturing the mode's graph:
+    capture ms, peak memory; one more warm octave run under
+    torch.profiler, its counted launches against the device events inside
+    graph launches), every chunk decoded and uploaded again (3 runs), the
+    graphs' memory with the three keys live, and one warm run under
+    torch.profiler through the graphs (the same check) and one under
+    eager(): the device's busy share, its events, the host's launch calls,
+    and the device events inside graph launches."""
+    from audio_analysis_tpu_torch.engine import graphs
     from audio_analysis_tpu_torch.report import EngineBundleSettings, run_bundle_report_engine
 
     out = {}
     for bands in ("octave", "third"):
         torch.cuda.reset_peak_memory_stats(dev)
-        cold = run_cli(cli_main, root, "reports_" + bands, "--bands", bands)
-        warm = [run_cli(cli_main, root, "reports_" + bands, "--bands", bands) for _ in range(3)]
+        cold, ran = graph_runs(lambda: run_cli(cli_main, root, "reports_" + bands, "--bands", bands))
+        warm, warm_ran = graph_runs(lambda: [run_cli(cli_main, root, "reports_" + bands, "--bands", bands)
+                                             for _ in range(3)])
+        if ran["captures"] or ran["replays"] or warm_ran["captures"] != 1 or warm_ran["replays"] != 5:
+            raise AssertionError(f"--bands {bands}: graphs {ran} cold, {warm_ran} in 3 warm runs")
+        key = next(k for k in graphs.STEP_GRAPHS.keys() if k[-1].band_mode == bands)
         out[bands] = {
             "cold_s": cold,
             "warm_s": warm,
+            "capture_ms": graphs.STEP_GRAPHS.capture_ms(key),
             "peak_device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "peak_device_memory_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
         }
+        if bands == "octave":
+            out[bands]["warm_profiled"] = profiled_launches(
+                torch, counters, lambda: run_cli(cli_main, root, "reports_octave", "--bands", "octave"), "octave")
     uncached = EngineBundleSettings(reports_subdir="reports_uncached", cache_device_audio=False)
     out["uncached_s"] = []
     for _ in range(3):
@@ -634,7 +920,20 @@ def other_loads(torch, cli_main, root: Path, dev) -> dict:
         run_bundle_report_engine(root, uncached, dev)
         torch.cuda.synchronize()
         out["uncached_s"].append(time.perf_counter() - t0)
-    out["warm_profiled"] = device_busy(torch, lambda: run_cli(cli_main, root, "reports_cuda"))
+    out["graphs_live"] = len(graphs.STEP_GRAPHS.keys())
+    out["graph_pools_gib"] = graph_pool_gib(torch, dev)
+    out["device_memory_reserved_gib"] = torch.cuda.memory_reserved(dev) / 2**30
+    out["memory_returns"] = graphs.STEP_GRAPHS.stats()["memory_returns"]
+    run_cli(cli_main, root, "reports_cuda")
+    out["warm_profiled"] = profiled_launches(torch, counters, lambda: run_cli(cli_main, root, "reports_cuda"),
+                                             "warm run")
+    with graphs.eager():
+        run_cli(cli_main, root, "reports_eager")
+        out["warm_profiled_eager"] = device_busy(torch, lambda: run_cli(cli_main, root, "reports_eager"))
+    if out["warm_profiled"]["host_calls"]["cudaGraphLaunch"] < 2:
+        raise AssertionError(f"warm run: fewer than 2 graph launches: {out['warm_profiled']}")
+    out["cold_split"] = cold_split(torch, root)
+    out["capture_break_even"] = capture_break_even(torch, root, dev)
     return out
 
 
@@ -648,6 +947,19 @@ def count_launches(counters, fn):
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     return result, launches
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The kernels' plain torch versions swapped in, with the engine step
+    eager (`engine.eager()`, which clears the graph cache): a graph captured
+    with the kernels would replay them under the swap."""
+    from audio_analysis_tpu_torch.engine import eager
+    from audio_analysis_tpu_torch.ops import edc, stft
+
+    with eager(), mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        yield
 
 
 def cli_exit_code(main, argv) -> int:
@@ -693,7 +1005,7 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
     from audio_analysis_tpu_torch.engine import EngineConfig
     from audio_analysis_tpu_torch.engine.batch import band_masks
     from audio_analysis_tpu_torch.io.wav import load_wav_file, write_wav_pcm16
-    from audio_analysis_tpu_torch.ops import edc, fftmask, stft
+    from audio_analysis_tpu_torch.ops import fftmask
     from audio_analysis_tpu_torch.report import count_flagged_in_text
     from audio_analysis_tpu_torch.report import watch as watch_module
 
@@ -711,8 +1023,11 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
         raise AssertionError(f"--bands-decimate: {launches['edc']} K1 launches, expected {expected}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     warm = [run_cli(cli_main, root, "reports_decimate", "--bands-decimate") for _ in range(3)]
-    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+    profiled = profiled_launches(torch, counters, lambda: run_cli(cli_main, root, "reports_decimate",
+                                                                  "--bands-decimate"), "--bands-decimate")
+    if profiled["launches"] != launches:
+        raise AssertionError(f"--bands-decimate: launches {profiled['launches']} replayed, {launches} cold")
+    with plain_versions():
         plain = run_cli(cli_main, root, "reports_decimate_plain", "--bands-decimate")
     dec_json = json.loads((root / "reports_decimate" / "bundle_metrics.json").read_text())
     plain_json = json.loads((root / "reports_decimate_plain" / "bundle_metrics.json").read_text())
@@ -729,6 +1044,7 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
         f"largest relative band fit difference from the full-rate run {movement}")
     out["bands_decimate"] = {
         "cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
+        "warm_profiled": profiled,
         "band_fit_max_rel_diff_vs_full_rate": movement,
     }
 
@@ -765,10 +1081,9 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
     batch_root = REPO / "build" / "chip_smoke_batch"
     shutil.rmtree(batch_root, ignore_errors=True)
     wavs = [str(root / "taps" / f"{tap}.wav") for tap in picks]
+    batch_argv = ["batch", "--inputs", *wavs, "--output", str(batch_root), "--no-plots"]
     t0 = time.perf_counter()
-    _, launches = count_launches(counters, lambda: cli_main(
-        ["batch", "--inputs", *wavs, "--output", str(batch_root), "--no-plots"]
-    ))
+    (_, launches), batch_graphs = graph_runs(lambda: count_launches(counters, lambda: cli_main(batch_argv)))
     launches_by_path["batch"] = launches
     batch_s = time.perf_counter() - t0
     batch_json = json.loads((batch_root / "reports" / "bundle_metrics.json").read_text())
@@ -776,8 +1091,24 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
         raise AssertionError(f"batch taps {batch_json['taps']}")
     rows = [names.index(tap) for tap in picks]
     compare_metrics(batch_json["metrics"], {k: [v[i] for i in rows] for k, v in full_json["metrics"].items()})
-    log(f"batch --no-plots over {len(picks)} tap WAVs agrees with the bundle run ({batch_s:.3f} s)")
+    # the same batch again: its one chunk (no call ahead) ran eagerly in
+    # the first run; the key ended that call, so the second run captures
+    # after it and the third replays
+    t0 = time.perf_counter()
+    _, capture_graphs = graph_runs(lambda: cli_main(batch_argv))
+    capture_batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, warm_graphs = graph_runs(lambda: cli_main(batch_argv))
+    warm_batch_s = time.perf_counter() - t0
+    ran = [(g["captures"], g["replays"]) for g in (batch_graphs, capture_graphs, warm_graphs)]
+    if ran != [(0, 0), (1, 0), (0, 1)]:
+        raise AssertionError(f"batch: (captures, replays) {ran} in three runs, expected none, a capture, a replay")
+    log(f"batch --no-plots over {len(picks)} tap WAVs agrees with the bundle run ({batch_s:.3f} s; "
+        f"again {capture_batch_s:.3f} s, capturing; warm {warm_batch_s:.3f} s, a replay)")
     out["batch_s"] = batch_s
+    out["batch_capture_s"] = capture_batch_s
+    out["batch_warm_s"] = warm_batch_s
+    out["batch_graphs"] = [batch_graphs, capture_graphs, warm_graphs]
 
     # 7.5 watch: two copies of a 4-tap bundle, one tap re-recorded at 0.9x
     watch_root = REPO / "build" / "chip_smoke_watch"
@@ -800,10 +1131,13 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
 
     t_start = time.time()
     with mock.patch.object(watch_module, "watch_bundle_runs", bounded_watch):
-        _, launches = count_launches(counters, lambda: cli_main(
+        (_, launches), watch_graphs = graph_runs(lambda: count_launches(counters, lambda: cli_main(
             ["watch", "--input", str(watch_root), "--max-bundles", "2", "--interval", "0.05"]
-        ))
+        )))
     launches_by_path["watch"] = launches
+    # the batch run left the 4-tap key's graph: both bundles replay it
+    if watch_graphs["replays"] != 2 or watch_graphs["captures"]:
+        raise AssertionError(f"watch: graphs {watch_graphs}, expected a replay a bundle")
     events = [json.loads(line) for line in (watch_root / "watch_log.jsonl").read_text().splitlines()]
     indexes = [watch_root / run / "reports" / "bundle_report.md" for run in ("run1", "run2")]
     if len(events) != 2 or not all(p.is_file() for p in indexes):
@@ -814,7 +1148,7 @@ def fast_path_commands(torch, cli_main, root: Path, dev, counters, launches_by_p
     cycles = [events[0]["ts"] - t_start, events[1]["ts"] - events[0]["ts"]]
     log(f"watch: 2 bundles, cycles {cycles[0]:.3f} s and {cycles[1]:.3f} s, "
         f"{count_flagged_in_text(second)} flagged lines in the second index")
-    out["watch"] = {"cycle_s": cycles, "flagged_second": count_flagged_in_text(second),
+    out["watch"] = {"cycle_s": cycles, "flagged_second": count_flagged_in_text(second), "graphs": watch_graphs,
                     "events": [{k: e.get(k) for k in ("compute_seconds", "audio_chunks_reused",
                                                       "audio_chunks_uploaded")} for e in events]}
     return out
@@ -880,7 +1214,6 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
     from scipy.io import wavfile
 
     from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
-    from audio_analysis_tpu_torch.ops import edc, stft
 
     # the tests' golden IR and comparisons (numpy and re only)
     sys.path.insert(0, str(REPO / "tests"))
@@ -931,8 +1264,7 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
             raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
         warm, _ = run(full("kernel"))
         busy = device_busy(torch, lambda: run(full("kernel"))) if wav != verb else None
-        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        with plain_versions():
             plain, plain_out = run(full("plain"))
         if wav is None:
             a = wavfile.read(out_dir / "ir_kernel.wav")[1]
@@ -1287,7 +1619,6 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     from audio_analysis_tpu_torch.io import materialize_bundle_view
     from audio_analysis_tpu_torch.io import wav as wav_io
     from audio_analysis_tpu_torch.io.wav import write_wav_pcm16
-    from audio_analysis_tpu_torch.ops import edc, stft
     from audio_analysis_tpu_torch.report import bundle as bundle_module
     from audio_analysis_tpu_torch.report.report import ReportSettings, run_report_from_wav_file
 
@@ -1305,8 +1636,6 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     tap = root / "taps" / "tap00.wav"
     names = [f"tap{i:02d}" for i in range(4)]
     view = materialize_bundle_view([str(root / "taps" / f"{t}.wav") for t in names], out_dir / "bundle4")
-    plain_kernels = (mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain),
-                     mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain))
 
     def recorded(base: Path, wav: Path = tap):
         jobs = RecordingPlotWorker()
@@ -1336,7 +1665,7 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     log(f"report decodes of the tap: cold {cold_decodes}, 3 warm reports {warm_decodes}; warm "
         f"{min(warm):.3f}-{max(warm):.3f} s; {out['report_decodes']['card']}")
     busy = device_busy(torch, lambda: recorded(out_dir / "rec_k" / "tap00"))
-    with plain_kernels[0], plain_kernels[1]:
+    with plain_versions():
         plain, plain_md, plain_jobs = recorded(out_dir / "rec_p" / "tap00")
     worst = compare_jobs(plain_jobs.jobs, kernel_jobs.jobs)
     compare_markdown(kernel_md.summary_markdown, plain_md.summary_markdown.replace("rec_p", "rec_k"), "report")
@@ -1412,7 +1741,7 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     warm = [cli_report("warm")[0] for _ in range(2)]
     busy = device_busy(torch, lambda: cli_report("profiled"))
-    with plain_kernels[0], plain_kernels[1]:
+    with plain_versions():
         plain, plain_text = cli_report("plain")
     compare_markdown(kernel_text, plain_text.replace("/cli/plain/", "/cli/cold/"), "report CLI")
     out["report_cli"] = {"cold_s": cold, "warm_s": warm, "plain_s": plain, "peak_device_memory_gib": peak,
@@ -1470,7 +1799,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
 # ------------------------------------------------------- multi-device ----
 
 # One rank of phase 11's job: `bundle --multi-host` through the CLI entry,
-# twice in one process (cold, then warm, each with its own coordinator),
+# three times in one process (cold, then warm twice, each with its own
+# coordinator),
 # the launch counters set to 0 before each run and read after it.
 # A rank's gloo gathers send its payloads pickled (what all_gather_object
 # serialises); the rank code counts those bytes.
@@ -1479,10 +1809,10 @@ import json, pickle, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 from audio_analysis_tpu_torch.cli.analyse_cli import main
-from audio_analysis_tpu_torch.engine import distributed
+from audio_analysis_tpu_torch.engine import distributed, graphs
 from audio_analysis_tpu_torch.ops import edc, stft
 
-out_json, argv, addresses = sys.argv[2], sys.argv[3:-2], sys.argv[-2:]
+out_json, argv, addresses = sys.argv[2], sys.argv[3:-3], sys.argv[-3:]
 real_analyze, real_gather, engine_s, sent = distributed.analyze_bundle_multi_host, distributed._all_gather, [], []
 
 def timed_analyze(*args, **kwargs):
@@ -1505,10 +1835,13 @@ for address in addresses:
     edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
     sent.clear()
     torch.cuda.reset_peak_memory_stats(0)
+    before = graphs.STEP_GRAPHS.stats()
     t0 = time.perf_counter()
     main(argv + ["--coordinator", address])
     torch.cuda.synchronize()
+    after = graphs.STEP_GRAPHS.stats()
     runs.append({"wall_s": time.perf_counter() - t0, "engine_s": engine_s[-1],
+                 "graphs": {k: after[k] - before[k] for k in ("captures", "replays")},
                  "launches": {"edc": edc.EDC_KERNEL.launches, "stft": stft.STFT_KERNEL.launches},
                  "peak_device_memory_gib": torch.cuda.max_memory_allocated(0) / 2**30,
                  "gather_bytes_sent": sum(sent), "gathers": len(sent)})
@@ -1575,10 +1908,9 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
 
     import numpy as np
 
-    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle_pipelined, make_mesh
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_bundle_pipelined, graphs, make_mesh
     from audio_analysis_tpu_torch.engine.mesh import bundle_aggregates
     from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
-    from audio_analysis_tpu_torch.ops import edc, stft
 
     out = {"card": card_line()}
     _meta, lengths, names, n_max, loader = open_bundle_chunks_i16(root)
@@ -1593,18 +1925,25 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
         return time.perf_counter() - t0, res
 
     # 11 (a): 16 taps, 8 a shard: one chunk, each shard the 8-tap batch of
-    # a single-device chunk, so K1 and K2 launch twice a shard
+    # a single-device chunk, so K1 and K2 launch twice a shard, and both
+    # shards replay the graph of the single-device chunk's key
     _s, single = run(None)
     torch.cuda.reset_peak_memory_stats(dev)
-    (cold, sharded), launches = count_launches(counters, lambda: run(mesh))
+    ((cold, sharded), launches), mesh_graphs = graph_runs(lambda: count_launches(counters, lambda: run(mesh)))
     if (launches["edc"], launches["stft"]) != (4, 4):
         raise AssertionError(f"mesh of 2 shards: launches {launches}, expected K1 4, K2 4")
+    if mesh_graphs["replays"] != 2 or mesh_graphs["captures"]:
+        raise AssertionError(f"mesh of 2 shards: graphs {mesh_graphs}, expected a replay a shard")
     launches_by_path["multi_device"] = launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     warm = [run(mesh)[0] for _ in range(3)]
     single_warm = [run(None)[0] for _ in range(3)]
-    with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+    with graphs.eager():
+        eager_s, eager_mesh = run(mesh)
+    differing = [k for k in eager_mesh if not np.array_equal(sharded[k], eager_mesh[k], equal_nan=True)]
+    if differing:
+        raise AssertionError(f"mesh: the graph run differs from the eager() run in {differing}")
+    with plain_versions():
         plain_s, plain = run(mesh)
     # as bundle_metrics.json holds them: floats as float64, under its limits
     compare_metrics(*(json.loads(json.dumps({k: v.tolist() for k, v in r.items()})) for r in (sharded, single)))
@@ -1612,7 +1951,8 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
     diff = largest_differences(sharded, single)
     out["mesh"] = {
         "devices": [str(d) for d in mesh], "cold_s": cold, "warm_s": warm, "single_device_warm_s": single_warm,
-        "plain_s": plain_s, "peak_device_memory_gib": peak, "launches": launches,
+        "eager_s": eager_s, "plain_s": plain_s, "peak_device_memory_gib": peak, "launches": launches,
+        "graphs": mesh_graphs, "bit_equal_to_eager": True,
         "max_abs_diff_vs_single_device": max(diff.values()),
         "keys_differing_from_single_device": {k: v for k, v in diff.items() if v > 0.0},
         "max_abs_diff_vs_plain": max(largest_differences(sharded, plain).values()),
@@ -1620,7 +1960,7 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
     log(f"multi_device (a) mesh {out['mesh']['devices']}: cold {cold:.3f} s, warm {min(warm):.3f}-{max(warm):.3f} s "
         f"(single device {min(single_warm):.3f}-{max(single_warm):.3f} s), peak {peak:.3f} GiB, launches {launches}; "
         f"largest difference from the single-device run {out['mesh']['max_abs_diff_vs_single_device']:.3g}, "
-        f"kernel run == plain run")
+        f"graphs {mesh_graphs}, bit-equal to the eager() run, kernel run == plain run")
 
     # 11 (b): the two-rank job, both ranks on the card, against a
     # single-process `bundle --no-plots` job and phase 4's single-process run
@@ -1630,7 +1970,7 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
     work = REPO / "build" / "chip_smoke_multi_device"
     work.mkdir(parents=True, exist_ok=True)
     rank_json = [work / f"rank{i}.json" for i in range(RANKS)]
-    addresses = [free_address(), free_address()]
+    addresses = [free_address() for _ in range(3)]
     commands = [
         [sys.executable, "-c", RANK_CODE, str(REPO), str(rank_json[i]), "bundle", "--input", str(root),
          "--multi-host", "--num-processes", str(RANKS), "--process-id", str(i), "--reports-subdir", "reports_mh",
@@ -1646,6 +1986,10 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
         for one in r["runs"]:
             if one["launches"] != {"edc": 2, "stft": 2}:
                 raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2")
+        # a rank's one chunk: eager in its cold run (no call ahead), captured
+        # in its first warm run (the key ended a call), replayed in the second
+        if [(one["graphs"]["captures"], one["graphs"]["replays"]) for one in r["runs"]] != [(0, 0), (1, 0), (0, 1)]:
+            raise AssertionError(f"rank {i}: graphs {[one['graphs'] for one in r['runs']]}")
         total = {k: total[k] + r["runs"][0]["launches"][k] for k in total}
     launches_by_path["multi_device --multi-host (2 ranks)"] = total
     if ["Wrote bundle report index:" in log for log in logs] != [True, False]:
@@ -1677,8 +2021,8 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
         "rank_runs": [r["runs"] for r in ranks], "rank_devices": [r["device"] for r in ranks],
         "launches": total,
     }
-    log(f"multi_device (b) {RANKS} ranks on {[r['device'] for r in ranks]}: job {job_wall:.2f} s (two runs a rank), "
-        f"single-process job {single_wall:.2f} s; per rank cold/warm "
+    log(f"multi_device (b) {RANKS} ranks on {[r['device'] for r in ranks]}: job {job_wall:.2f} s (three runs a "
+        f"rank), single-process job {single_wall:.2f} s; per rank cold/capture/replay "
         f"{[[round(x['wall_s'], 3) for x in r['runs']] for r in ranks]} s, engine "
         f"{[[round(x['engine_s'], 3) for x in r['runs']] for r in ranks]} s, gathered "
         f"{sum(r['runs'][0]['gather_bytes_sent'] for r in ranks)} bytes (sent by the ranks {[r['runs'][0]['gather_bytes_sent'] for r in ranks]}); "
@@ -1918,9 +2262,8 @@ def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
     sys.path.insert(0, str(REPO / "tests"))
     from _engine_parity import assert_engines_agree, conditioning_runs
 
-    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, analyze_bundle_pipelined
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, analyze_bundle_pipelined, graphs
     from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
-    from audio_analysis_tpu_torch.ops import edc, stft
 
     _meta, lengths, _names, n_max, loader = open_bundle_chunks_i16(root)
     lengths = lengths[:FUZZ_TAPS]
@@ -1933,23 +2276,44 @@ def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
     draws = [("time_axis_finding", {**dataclasses.asdict(EngineConfig()), **TIME_AXIS_FIELDS}),
              ("frame_plane_finding", {**dataclasses.asdict(EngineConfig()), **FRAME_PLANE_FIELDS})]
     draws += [(f"drawn {i}", draw_engine_fields(rng)) for i in range(FUZZ_ENGINE_DRAWS)]
-    worst, totals = 0.0, {"edc": 0, "stft": 0}
+    worst, totals, replays, peaks = 0.0, {"edc": 0, "stft": 0}, 0, []
     for i, (label, fields) in enumerate(draws):
         cfg = EngineConfig(**fields)
         fuzz_log("engine", i, seed, {"label": label, **fields})
-        kernel, launches = read_launches(
-            counters, lambda: analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev))
+        def run():
+            return analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (kernel, launches), cold_graphs = graph_runs(lambda: read_launches(counters, run))
+        peaks.append((torch.cuda.max_memory_allocated(dev), label, cfg))
         want = expected_engine_launches(cfg, FUZZ_TAPS, n_max)
         if (launches["edc"], launches["stft"]) != want:
             raise AssertionError(f"engine fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
         for name in totals:
             totals[name] += launches[name]
-        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
-            plain = analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev)
+        # the draw's one chunk: eager, then captured (the key ended a call),
+        # then replayed, each with the same launches; the replay against
+        # the eager() kernel run: bit-equal
+        (_, capture_launches), capture_graphs = graph_runs(lambda: read_launches(counters, run))
+        (replayed, replay_launches), warm_graphs = graph_runs(lambda: read_launches(counters, run))
+        ran = [(g["captures"], g["replays"]) for g in (cold_graphs, capture_graphs, warm_graphs)]
+        if ran != [(0, 0), (1, 0), (0, 1)] or not capture_launches == replay_launches == launches:
+            raise AssertionError(f"engine fuzz draw {i}: (captures, replays) {ran}, launches {launches}, "
+                                 f"{capture_launches}, {replay_launches}")
+        with graphs.eager():
+            eager_run = run()
+        differing = [k for k in eager_run if not np.array_equal(replayed[k], eager_run[k], equal_nan=True)]
+        if differing:
+            raise AssertionError(f"engine fuzz draw {i}: the graph run differs from the eager() run in {differing}")
+        replays += 1
+        with plain_versions():
+            plain = run()
         runs = conditioning_runs(on_card, x, lengths, cfg)
         worst = max(worst, assert_engines_agree(plain, kernel, runs, phase5_tolerance, np.ones(FUZZ_TAPS, bool),
                                                 f"engine fuzz draw {i}: "))
+    live = live_graphs_memory(torch, dev, [cfg for _peak, _label, cfg in sorted(peaks, key=lambda p: -p[0])],
+                              lambda cfg: analyze_bundle_pipelined(loader, lengths, n_max, cfg, FUZZ_TAPS, device=dev))
+    live["draws"] = [label for _peak, label, _cfg in sorted(peaks, key=lambda p: -p[0])[:graphs.MAX_GRAPHS]]
     # fuzz finding (repaired): a frame block longer than the signal raises a
     # ValueError before any launch, as the JAX engine raises one
     for j, block in enumerate(("n_fft", "modal_n_fft")):
@@ -1964,7 +2328,55 @@ def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
                 raise AssertionError(f"{block} above N: {exc}; launches {[c.launches for c in counters]}") from exc
         else:
             raise AssertionError(f"{block} above N ran; the JAX engine raises a ValueError")
-    return {"draws": len(draws) + 2, "worst_ratio_vs_plain": worst, "launches": totals}
+    return {"draws": len(draws) + 2, "worst_ratio_vs_plain": worst, "launches": totals,
+            "graph_runs_bit_equal_to_eager": replays, "live_graphs_memory": live}
+
+
+def live_graphs_memory(torch, dev, configs, run) -> dict:
+    """Device memory with MAX_GRAPHS graphs live: the first MAX_GRAPHS of
+    `configs` (the drawn configs by their eager peak, largest first), each
+    key already seen, run once through the graphs (each captured into the
+    device's shared pool), beside the same runs under eager() and through
+    a cache whose every capture starts a pool of its own (`private_pools`,
+    one pool a graph, for comparison); the allocator's cache returned to
+    the device before each set."""
+    from audio_analysis_tpu_torch.engine import graphs
+
+    picked = configs[:graphs.MAX_GRAPHS]
+    out = {}
+    for label in ("eager", "graphs", "private_pools"):
+        graphs.STEP_GRAPHS.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cache = graphs.StepGraphs() if label == "private_pools" else graphs.STEP_GRAPHS
+        cache._seen.update(graphs.STEP_GRAPHS._seen)
+        with contextlib.ExitStack() as stack:
+            if label == "eager":
+                stack.enter_context(graphs.eager())
+            stack.enter_context(mock.patch.object(graphs, "STEP_GRAPHS", cache))
+            before = cache.stats()
+            for cfg in picked:
+                if label == "private_pools":
+                    cache._pools.clear()  # the next capture starts a pool of its own
+                run(cfg)
+            after = cache.stats()
+            pools = graph_pool_gib(torch, dev)
+        out[label] = {"graphs_live": len(cache.keys()),
+                      "captures": after["captures"] - before["captures"],
+                      "memory_returns": after["memory_returns"] - before["memory_returns"],
+                      "graph_pools_gib": pools["live"] + pools["unused"],
+                      "reserved_gib": torch.cuda.memory_reserved(dev) / 2**30,
+                      "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
+        if label == "private_pools":
+            cache.clear()
+    for label in ("graphs", "private_pools"):
+        if out[label]["captures"] != len(picked) or out[label]["graphs_live"] != len(picked):
+            raise AssertionError(f"live graphs: {out[label]}, expected {len(picked)} captured and live")
+    graphs.STEP_GRAPHS.clear()
+    log("memory with the drawn configs' graphs live: " + json.dumps(out))
+    return out
 
 
 def summary_ratio(ref: str, got: str, rel: float, abs_: float) -> float:
@@ -2019,7 +2431,7 @@ def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict
     sys.path.insert(0, str(REPO / "tests"))
     from _summary_parity import assert_summaries_agree, json_skeleton
 
-    from audio_analysis_tpu_torch.ops import edc, stft
+    from audio_analysis_tpu_torch.ops import stft
 
     out_dir = REPO / "build" / "chip_smoke_fuzz"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2043,8 +2455,7 @@ def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict
             raise AssertionError(f"per-file fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
         for name in totals:
             totals[name] += launches[name]
-        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+        with plain_versions():
             plain_text = run("plain")
         tol = SUMMARY_TOLERANCES[cmd]
         ref, got = plain_text.split("\n", 1)[1], kernel_text.split("\n", 1)[1]
@@ -2365,7 +2776,7 @@ def main(argv=None) -> int:
 
     from audio_analysis_tpu_torch import _build
     from audio_analysis_tpu_torch.cli.analyse_cli import main as cli_main
-    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch
+    from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, graphs
     from audio_analysis_tpu_torch.engine.batch import modal_tables
     from audio_analysis_tpu_torch.io import native, read_bundle_meta, write_bundle
     from audio_analysis_tpu_torch.ops import edc, stft
@@ -2409,27 +2820,52 @@ def main(argv=None) -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
 
-    # 4. the main path, through the CLI entry
+    # 4. the main path, through the CLI entry: the process's first bundle
+    # of two chunks runs eagerly (one call of the key ahead, below
+    # graphs.MIN_CALLS_AHEAD); the key has then ended a call, so the next
+    # run captures after its first chunk and replays the second
     torch.cuda.reset_peak_memory_stats(dev)
-    phases["e2e_cold_s"], launches = count_launches(counters, lambda: run_cli(cli_main, root, "reports_cuda"))
+    (phases["e2e_cold_s"], launches), cold_graphs = graph_runs(
+        lambda: count_launches(counters, lambda: run_cli(cli_main, root, "reports_cuda")))
     launches_by_path = {MAIN_PATH: launches}
     phases["peak_device_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    log(f"main path launches: {launches}")
+    phases["peak_device_memory_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+    if (cold_graphs["captures"], cold_graphs["replays"]) != (0, 0):
+        raise AssertionError(f"main path: graphs {cold_graphs} in the first run, expected none")
+    torch.cuda.reset_peak_memory_stats(dev)
+    (phases["e2e_capture_s"], capture_launches), capture_graphs = graph_runs(
+        lambda: count_launches(counters, lambda: run_cli(cli_main, root, "reports_cuda")))
+    if (capture_graphs["captures"], capture_graphs["replays"]) != (1, 1) or capture_launches != launches:
+        raise AssertionError(f"main path, second run: graphs {capture_graphs}, launches {capture_launches}")
+    (key,) = graphs.STEP_GRAPHS.keys()
+    phases["graphs_cold"] = cold_graphs
+    phases["graphs_capture"] = {**capture_graphs, "capture_ms": graphs.STEP_GRAPHS.capture_ms(key),
+                                "peak_device_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                                "peak_device_memory_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
+    log(f"main path launches: {launches}; graphs {cold_graphs} in the first run, {phases['graphs_capture']} "
+        "in the second")
 
-    # warm runs (device audio cache hits) with the kernels and with the
-    # plain versions swapped in, alternating on the same card
-    warm = {"kernels": [], "plain": []}
-    for side in ("kernels", "plain", "plain", "kernels", "kernels", "plain"):
-        if side == "kernels":
-            warm[side].append(run_cli(cli_main, root, "reports_cuda"))
-            continue
-        with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-                mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
-            warm[side].append(run_cli(cli_main, root, "reports_plain"))
-    phases["e2e_warm_s"] = warm["kernels"]
+    # warm runs (device audio cache hits) through the graphs, under
+    # eager() and with the plain versions swapped in, in turns on the same
+    # card; eager() clears the graph cache, so the first graph run after
+    # it captures again (`recapture`)
+    warm = {"graphs": [], "recapture": [], "eager": [], "plain": []}
+    for _round in range(3):
+        for _ in range(2):
+            wall, ran = graph_runs(lambda: run_cli(cli_main, root, "reports_cuda"))
+            warm["recapture" if ran["captures"] else "graphs"].append(wall)
+        with graphs.eager():
+            warm["eager"].append(run_cli(cli_main, root, "reports_eager"))
+        with plain_versions():
+            warm["plain"].append(run_cli(cli_main, root, "reports_plain"))
+    phases["e2e_warm_s"] = warm["graphs"]
+    phases["e2e_recapture_s"] = warm["recapture"]
+    phases["e2e_warm_eager_s"] = warm["eager"]
     phases["e2e_warm_plain_s"] = warm["plain"]
     cuda_json = json.loads((root / "reports_cuda" / "bundle_metrics.json").read_text())
+    eager_json = json.loads((root / "reports_eager" / "bundle_metrics.json").read_text())
     phases["e2e_warm_phases"] = cuda_json["phases"]
+    phases["e2e_warm_eager_phases"] = eager_json["phases"]
 
     # 5. checks, and the same run with the plain versions on the card
     names = cuda_json["taps"]
@@ -2448,11 +2884,13 @@ def main(argv=None) -> int:
             tap,
         )
     log(f"kernel run == plain run on the card: {TAPS} taps, markdown and bundle_metrics.json")
+    # the graph run (both chunks replayed) bit-equal to the eager() kernel run
+    check_bit_equal(root, "reports_cuda", "reports_eager", names, "graph run vs eager() run")
     log(f"bundle_median_t30 {cuda_json['bundle_median_t30']}")
 
     # 6. where the device time of one chunk goes, and other loads
     phases["blocks_ms"] = block_times(torch, analyze_batch, EngineConfig, root, dev)
-    phases["other_loads"] = other_loads(torch, cli_main, root, dev)
+    phases["other_loads"] = other_loads(torch, cli_main, root, dev, counters)
 
     # 7. the rest of the engine fast path
     fast = fast_path_commands(torch, cli_main, root, dev, counters, launches_by_path, cuda_json)
@@ -2491,6 +2929,7 @@ def main(argv=None) -> int:
     fuzz = fuzz_phase(torch, cli_main, root, dev, counters, launches_by_path, args.fuzz_seed)
     phases["fuzz_s"] = fuzz["seconds"]
     check_modules(FUZZ_MODULES, ("jax", "audio_analysis_tpu"))
+    phases["graph_stats"] = graphs.STEP_GRAPHS.stats()
     log("phases " + json.dumps(phases))
 
     kernels = [

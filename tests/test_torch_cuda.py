@@ -6,7 +6,11 @@ single-device run (bit-equal), the AR Gram in float32 on the card against a
 float64 Gram on the card, Karplus-Strong on the card against the CPU, the
 report suite's render jobs with the kernels against the plain versions on
 the card (and its markdown against the golden report), and the
-spectrogram's display pooling on the card against the CPU.
+spectrogram's display pooling on the card against the CPU; and the
+engine step's CUDA graphs: a graph run bit-equal to the `eager()` run on a
+2-chunk bundle and a mesh of two shards with the kernels' launches
+unchanged, every step config captured after a warm step that makes no
+synchronising call, and a capture that meets a host read raising.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
 JAX is not needed (the card's machine has none). On the card:
 
@@ -43,8 +47,11 @@ from audio_analysis_tpu_torch.engine import (
     analyze_batch,
     analyze_batch_sharded,
     analyze_bundle_pipelined,
+    eager,
     make_mesh,
 )
+from audio_analysis_tpu_torch.engine import batch as batch_module
+from audio_analysis_tpu_torch.engine import graphs
 from audio_analysis_tpu_torch.engine.batch import band_masks
 from audio_analysis_tpu_torch.ops import display, edc, fftmask, spectral, stft
 from test_reference_parity import TOLERANCES
@@ -419,3 +426,176 @@ def test_kernels_match_the_float64_oracle_at_drawn_shapes(dev, seed):
         ref = 10.0 ** (ref_db[:k_out].T / 20.0)
         assert np.max(np.abs(got[row, : ref.shape[0]] - ref)) <= 1e-5 * ref.max()
         assert np.all(got[row, ref.shape[0]:] == 0.0)
+
+
+def _graph_taps(taps: int, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48_000
+    x = np.zeros((taps, 2, n), np.float32)
+    x[:, :, 256:] = 0.05 * rng.standard_normal((taps, 2, n - 256)) * 10.0 ** (-3.0 * t[: n - 256] / 1.2)
+    x[:, :, 256] = 0.9
+    lengths = (n - 4096 * np.arange(taps)).astype(np.int32)
+    for i, length in enumerate(lengths):
+        x[i, :, length:] = 0.0
+    return x, lengths
+
+
+def test_graph_runs_bit_equal_to_eager_on_a_bundle_and_a_mesh(dev, monkeypatch):
+    """4 taps in chunks of 2 through the step's CUDA graphs: a first call
+    (both chunks eager: one call of the key ahead is below
+    MIN_CALLS_AHEAD), a second (the key ended the first: its first chunk
+    eager, then captured, the second a replay), a warm call (two replays),
+    a mesh of two shards on cuda:0 (one replay a shard), and a first call
+    of a cache that captures with one call ahead (eager, captured,
+    replayed). Each is bit-equal to the eager() run and launches K1 and K2
+    4 and 4, as the eager run does."""
+    n = 1 << 16
+    x, lengths = _graph_taps(4, n, 6)
+    mesh = make_mesh(devices=[dev, dev])
+
+    def run(**kwargs):
+        return analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, EngineConfig(), 2, device=dev, **kwargs)
+
+    with eager():
+        ref = run()
+    cache = graphs.StepGraphs()
+    monkeypatch.setattr(graphs, "STEP_GRAPHS", cache)
+    runs = (("first", {}, (0, 0)), ("second", {}, (1, 1)), ("warm", {}, (0, 2)), ("mesh", {"mesh": mesh}, (0, 2)),
+            ("ahead", {}, (1, 1)))
+    for label, kwargs, expected in runs:
+        if label == "ahead":
+            cache.clear()
+            cache = graphs.StepGraphs(min_calls_ahead=1)
+            monkeypatch.setattr(graphs, "STEP_GRAPHS", cache)
+        edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
+        before = cache.stats()
+        got = run(**kwargs)
+        after = cache.stats()
+        assert (after["captures"] - before["captures"], after["replays"] - before["replays"]) == expected, label
+        assert (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches) == (4, 4), label
+        assert sorted(got) == sorted(ref)
+        for key, value in ref.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=f"{label} {key}")
+    cache.clear()
+
+
+def test_the_graphs_of_a_device_share_one_pool(dev):
+    """Three keys captured on cuda:0: one pool handle, and every graph's
+    static output lies in a segment of that pool; after clear() the next
+    capture starts a new pool."""
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    step = batch_module._analyze_batch_flat
+    try:
+        for taps in (1, 2, 3):
+            x, lengths = _graph_taps(taps, 1 << 16, taps)
+            cache.run(step, torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), EngineConfig())
+        assert cache.stats()["captures"] == 3 and len(cache._pools) == 1
+        (pool,) = cache._pools.values()
+        segments = [(seg["address"], seg["address"] + seg["total_size"]) for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool)]
+        for entry in cache._entries.values():
+            ptr = entry.output.data_ptr()
+            assert any(lo <= ptr < hi for lo, hi in segments)
+        cache.clear()
+        assert cache._pools == {}
+        x, lengths = _graph_taps(1, 1 << 16, 1)
+        cache.run(step, torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), EngineConfig())
+        assert cache._pools and tuple(next(iter(cache._pools.values()))) != tuple(pool)
+    finally:
+        cache.clear()
+
+
+def test_a_full_cufft_plan_cache_refuses_the_capture_and_the_replay(dev):
+    """A capture raises when torch's cuFFT plan cache is full (a plan the
+    graph captures could be evicted under it); a replay raises when the
+    cache has shrunk since its capture."""
+    plans = torch.backends.cuda.cufft_plan_cache[0]
+    max_size = plans.max_size
+    x, lengths = _graph_taps(2, 1 << 16, 8)
+    xs, ls = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
+    step = batch_module._analyze_batch_flat
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    try:
+        step(xs, ls, EngineConfig())
+        plans.max_size = plans.size
+        with pytest.raises(RuntimeError, match="cuFFT plan cache is full"):
+            cache.run(step, xs, ls, EngineConfig())
+        plans.max_size = max_size
+        cache.run(step, xs, ls, EngineConfig())
+        plans.clear()
+        with pytest.raises(RuntimeError, match="cuFFT plan cache went from"):
+            cache.run(step, xs, ls, EngineConfig())
+    finally:
+        plans.max_size = max_size
+        cache.clear()
+
+
+# step configs whose captured programs differ (tests/test_torch_fuzz_engine.py's space)
+CAPTURE_CASES = {
+    "three": ({}, np.int16),
+    "octave": ({"band_mode": "octave"}, np.float32),
+    "third": ({"band_mode": "third"}, np.int16),
+    "three_decimate": ({"bands_decimate": True}, np.int16),
+    "third_decimate": ({"band_mode": "third", "bands_decimate": True}, np.float32),
+    "modal_trim_bins": ({"modal_trim_bins": True}, np.int16),
+    "mono_n_fft_3000": ({"downmix_to_mono": True, "n_fft": 3000, "hop_length": 700}, np.float32),
+    "decay_only": ({"run_bands": False, "run_fr": False, "run_group_delay": False, "run_stft": False,
+                    "run_modal": False, "run_diffusion": False}, np.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAPTURE_CASES))
+def test_step_captures_after_a_warm_step_with_no_sync(dev, case):
+    """A warm eager step under torch.cuda.set_sync_debug_mode("error") (a
+    synchronising call or a pageable copy raises), then the capture and a
+    replay of the same chunk: bit-equal to the eager step, with the
+    kernels' launches of one eager step."""
+    fields, dtype = CAPTURE_CASES[case]
+    cfg = dataclasses.replace(EngineConfig(), **fields)
+    x, lengths = _graph_taps(2, 1 << 16, 7)
+    if dtype == np.int16:
+        x = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
+    xs, ls = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
+    step = batch_module._analyze_batch_flat
+    before = (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches)
+    step(xs, ls, cfg)  # the lazy uploads
+    per_step = (edc.EDC_KERNEL.launches - before[0], stft.STFT_KERNEL.launches - before[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ref, spec = step(xs, ls, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    try:
+        cache.run(step, xs, ls, cfg)
+        before = (edc.EDC_KERNEL.launches, stft.STFT_KERNEL.launches)
+        got, got_spec = cache.run(step, xs, ls, cfg)
+        assert (edc.EDC_KERNEL.launches - before[0], stft.STFT_KERNEL.launches - before[1]) == per_step
+        assert cache.stats()["replays"] == 1 and got_spec == spec
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+    finally:
+        cache.clear()
+
+
+@pytest.mark.parametrize("read", ["item", "pageable_upload"])
+def test_a_capture_that_meets_a_host_read_raises(dev, read):
+    """A step that reads a value back or copies from pageable host memory
+    runs eagerly, then its capture raises; nothing is cached, and the card
+    keeps working."""
+
+    def step(samples, lengths, config):
+        flat = samples.sum(dim=-1).reshape(-1)
+        if read == "item":
+            flat = flat * float(flat[0].item())
+        else:
+            flat = flat + torch.tensor([1.0], device=samples.device)
+        return flat, []
+
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    xs = torch.ones((2, 2, 64), device=dev)
+    ls = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError):
+        cache.run(step, xs, ls, read)
+    assert cache.keys() == [] and cache.stats()["captures"] == 0
+    assert float(torch.ones(8, device=dev).sum().item()) == 8.0
