@@ -47,6 +47,10 @@ _SIGNATURES = {
     "aa_edc_db": [_P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
     # x, lengths, window, twiddle, out, rows, n, n_fft, hop, frames, k_out, floor_lin, stream
     "aa_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _F32, _P],
+    # init, out, strings, delay, total, g, b, stream
+    "aa_karplus": [_P, _P, _I64, _I64, _I64, _F32, _F32, _P],
+    # x, num_frames, spans, pcts, out, channels, frames, bins, i0, rows, col_pool, stream
+    "aa_pool_image": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()

@@ -13,11 +13,16 @@ dequantised planes.
 onto 720 log-frequency rows and at most about 1200 columns, so that only
 the image (about 3 MB for a stereo 2^20-sample tap) and two colour
 percentiles cross to the host in one int16 copy. Row pooling is a range
-maximum over each row's contiguous bin range: a shifted-maximum pyramid
-along F (level k holds max(x[i : i + 2^k])), then each row is the maximum
-of two pyramid entries, picked by index (two cached int64 index vectors per
-key). The JAX package picks them with a one-hot selection matmul instead,
-a TPU workaround for gathers that is not ported. Max is exact, so the image
+maximum over each row's contiguous bin range. `_pooled_image` is the
+wrapper of kernel K4 (csrc/pool.cu, the Hopper counterpart of the JAX
+package's compiled `_pooled_image_dev`): on a CUDA tensor one launch reads
+each row's range directly and quantises; on a CPU tensor the plain torch
+version `_pooled_image_plain` builds a shifted-maximum pyramid along F
+(level k holds max(x[i : i + 2^k])) and takes each row as the maximum of
+two pyramid entries, picked by index (two cached int64 index vectors per
+key). The JAX package picks them with a one-hot selection matmul, a TPU
+workaround for gathers that is not ported. The colour percentiles are
+`selectq.masked_percentiles` on both routes. Max is exact, so the image
 equals the JAX package's to the bit on the same plane.
 """
 
@@ -28,7 +33,10 @@ import functools
 import numpy as np
 import torch
 
+from audio_analysis_tpu_torch import _build
 from audio_analysis_tpu_torch.ops import selectq
+
+POOL_KERNEL = _build.LaunchCounter("pool")
 
 # 1/128-dB steps over +-255.99 dB
 _DB_SCALE = 128.0
@@ -85,25 +93,36 @@ def stft_frame_slices(
 
 
 @functools.lru_cache(maxsize=16)
-def _log_row_select(
+def _log_row_spans(
     n_fft: int, sample_rate_hz: int, i0: int, i1: int, f_min: float, f_max: float, rows: int
-):
-    """(flat index of each row's first entry (rows,), of its second entry
-    (rows,), pyramid levels) into the level-stacked pyramid (levels *
-    F_sel). Row ranges as plot.log_frequency_image draws them: log-spaced
+) -> np.ndarray:
+    """(rows, 2) int32: each row's bin range (lo, w) within the selection
+    [i0, i1). Row ranges as plot.log_frequency_image draws them: log-spaced
     edges, searchsorted, the nearest bin for a row narrower than a bin."""
     freq_sel = _freqs_f32(n_fft, sample_rate_hz)[i0:i1]
     n_sel = freq_sel.size
     edges = np.logspace(np.log10(f_min), np.log10(f_max), rows + 1)
     idx = np.searchsorted(freq_sel, edges).clip(0, n_sel)
-    spans = []
+    spans = np.empty((rows, 2), np.int32)
     for r in range(rows):
         lo, hi = int(idx[r]), int(idx[r + 1])
-        spans.append((min(lo, n_sel - 1), 1) if hi <= lo else (lo, hi - lo))
-    levels = max(w for _, w in spans).bit_length()  # k = 0 .. floor(log2(max width))
+        spans[r] = (min(lo, n_sel - 1), 1) if hi <= lo else (lo, hi - lo)
+    return spans
+
+
+@functools.lru_cache(maxsize=16)
+def _log_row_select(
+    n_fft: int, sample_rate_hz: int, i0: int, i1: int, f_min: float, f_max: float, rows: int
+):
+    """(flat index of each row's first entry (rows,), of its second entry
+    (rows,), pyramid levels) into the level-stacked pyramid (levels *
+    F_sel) of the plain version, for the row ranges of _log_row_spans."""
+    spans = _log_row_spans(n_fft, sample_rate_hz, i0, i1, f_min, f_max, rows)
+    n_sel = i1 - i0
+    levels = int(spans[:, 1].max()).bit_length()  # k = 0 .. floor(log2(max width))
     first = np.empty(rows, np.int64)
     second = np.empty(rows, np.int64)
-    for r, (lo, w) in enumerate(spans):
+    for r, (lo, w) in enumerate(spans.tolist()):
         k = w.bit_length() - 1  # 2^k <= w < 2^(k+1): two entries cover the range
         first[r] = k * n_sel + lo
         second[r] = k * n_sel + lo + w - (1 << k)
@@ -116,20 +135,37 @@ def _row_index_on(key: tuple, device: torch.device):
     return torch.from_numpy(first).to(device), torch.from_numpy(second).to(device)
 
 
-def _pooled_image(
-    mag_tf: torch.Tensor, num_frames: torch.Tensor, first: torch.Tensor, second: torch.Tensor,
-    i0: int, i1: int, rows: int, levels: int, col_pool: int,
-) -> torch.Tensor:
-    """(C, T'+1, rows) int16: the pooled image, and the two colour
-    percentiles in the first two cells of the extra last column."""
+@functools.lru_cache(maxsize=4)
+def _row_spans_on(key: tuple, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_log_row_spans(*key)).to(device)
+
+
+def _colour_percentiles(mag_tf: torch.Tensor, valid_t: torch.Tensor, i0: int, i1: int) -> torch.Tensor:
+    """(C, 2) float32: the 99.5th and 5th percentiles of each channel's
+    selected bins over its valid frames `valid_t` (C, T)."""
+    c, t, _f = mag_tf.shape
+    x = mag_tf[:, :, i0:i1]
+    vmask = valid_t[:, :, None].expand(c, t, i1 - i0).reshape(c, -1)
+    return selectq.masked_percentiles(x.reshape(c, -1), vmask, (99.5, 5.0))
+
+
+def _valid_frames(mag_tf: torch.Tensor, num_frames: torch.Tensor) -> torch.Tensor:
+    return torch.arange(mag_tf.shape[1], device=mag_tf.device)[None, :] < num_frames[:, None]  # (C, T)
+
+
+def _pooled_image_plain(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
+    """The plain torch version of K4: (C, T'+1, rows) int16, the pooled
+    image and the two colour percentiles in the first two cells of the
+    extra last column, through the shifted-maximum pyramid."""
+    i0, i1, rows = key[2], key[3], key[6]
+    first, second = _row_index_on(key, mag_tf.device)
+    levels = _log_row_select(*key)[2]
     c, t, _f = mag_tf.shape
     x = mag_tf[:, :, i0:i1]
     n_sel = x.shape[-1]
-    valid_t = torch.arange(t, device=x.device)[None, :] < num_frames[:, None]  # (C, T)
-
+    valid_t = _valid_frames(mag_tf, num_frames)
     # the colour percentiles over the full-resolution valid region
-    vmask = valid_t[:, :, None].expand(c, t, n_sel).reshape(c, -1)
-    pcts = selectq.masked_percentiles(x.reshape(c, -1), vmask, (99.5, 5.0))  # (C, 2)
+    pcts = _colour_percentiles(mag_tf, valid_t, i0, i1)
 
     xm = torch.where(valid_t[:, :, None], x, _NEG)
     if col_pool > 1:
@@ -149,6 +185,43 @@ def _pooled_image(
     extras = torch.zeros((c, 1, rows), dtype=torch.float32, device=x.device)
     extras[:, 0, :2] = pcts
     return quantize_db_i16(torch.cat([image, extras], dim=1))
+
+
+def _pooled_image_cuda(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
+    """Kernel K4 on a CUDA float32 plane: the plain version's output, the
+    percentiles from the same sort, the image in one launch."""
+    if mag_tf.device.type != "cuda" or mag_tf.dtype != torch.float32:
+        raise TypeError(f"pooling kernel takes a CUDA float32 plane, got {mag_tf.dtype} on {mag_tf.device}")
+    i0, i1, rows = key[2], key[3], key[6]
+    x = mag_tf.contiguous()
+    c, t, f = x.shape
+    nf = num_frames.to(device=x.device, dtype=torch.int64).contiguous()
+    pcts = _colour_percentiles(x, _valid_frames(x, nf), i0, i1).contiguous()
+    spans = _row_spans_on(key, x.device)
+    out = torch.empty((c, -(-t // col_pool) + 1, rows), dtype=torch.int16, device=x.device)
+    if c == 0 or rows == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.aa_pool_image(
+            x.data_ptr(), nf.data_ptr(), spans.data_ptr(), pcts.data_ptr(), out.data_ptr(),
+            c, t, f, i0, rows, int(col_pool), stream,
+        )
+    _build.check(code, "pool kernel")
+    POOL_KERNEL.launches += 1
+    return out
+
+
+def _pooled_image(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
+    """(C, T'+1, rows) int16 pooled image with the colour percentiles in
+    its extra last column: kernel K4 on a CUDA plane, the plain version on
+    a CPU plane."""
+    if mag_tf.device.type == "cuda":
+        return _pooled_image_cuda(mag_tf, num_frames, key, col_pool)
+    if mag_tf.device.type == "cpu":
+        return _pooled_image_plain(mag_tf, num_frames, key, col_pool)
+    raise ValueError(f"unsupported device {mag_tf.device}")
 
 
 def pooled_log_freq_image(
@@ -177,15 +250,13 @@ def pooled_log_freq_image(
     """
     i0, i1 = freq_selection(n_fft, sample_rate_hz, f_min, f_max)
     key = (int(n_fft), int(sample_rate_hz), i0, i1, float(f_min), float(f_max), int(rows))
-    _first, _second, levels = _log_row_select(*key)
-    first, second = _row_index_on(key, mag_tf.device)
 
     nfh = np.asarray(num_frames_host, np.int64)
     pools = [-(-int(v) // cols) if (cols > 0 and int(v) > cols + cols // 2) else 1 for v in nfh]
     nf = torch.from_numpy(nfh).to(mag_tf.device)
 
     def run(mag_sub, nf_sub, col_pool):
-        q = _pooled_image(mag_sub, nf_sub, first, second, i0, i1, int(rows), levels, int(col_pool))
+        q = _pooled_image(mag_sub, nf_sub, key, int(col_pool))
         return dequantize_db_i16(q.cpu().numpy())
 
     if len(set(pools)) == 1:

@@ -282,8 +282,9 @@ def generate_karplus_strong_pluck(
     """
     Karplus-Strong pluck: a delay line seeded with band-limited noise,
     recirculated through a 2-point-average damping blend and a decay
-    factor. The recurrence runs in float32 on `device`, one delay-line
-    period per step (signals/torchgen.py).
+    factor. The recurrence runs in float32 on `device`: one launch of
+    kernel K3 on the card, one delay-line period per step on the CPU
+    (signals/torchgen.py).
     """
     if fundamental_frequency_hz <= 0.0:
         raise ValueError("fundamental_frequency_hz must be > 0")

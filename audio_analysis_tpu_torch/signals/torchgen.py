@@ -3,7 +3,12 @@ Device-side signal generation (audio_analysis_tpu/signals/jaxgen.py), on
 an explicit torch device:
 
 - karplus_strong_scan / karplus_strong_batch: the Karplus-Strong feedback
-  loop in float32, one delay-line period per vector step;
+  loop in float32. `karplus_strong_batch` is the wrapper of kernel K3
+  (csrc/karplus.cu, the Hopper counterpart of the compiled lax.scan of
+  audio_analysis_tpu/signals/jaxgen.py): on a CUDA tensor it launches the
+  kernel once, on a CPU tensor it runs the plain torch version
+  `karplus_strong_batch_plain` beside it, one delay-line period per vector
+  step; both are bit-equal to the per-sample scan;
 - log_sine_sweep: the exponential-phase sweep, float32 elementwise;
 - synthetic_reverb_ir_batch: batches of decaying-noise IRs with known
   low- and high-band RT60s, from an explicit torch.Generator
@@ -16,8 +21,12 @@ import math
 
 import torch
 
+from audio_analysis_tpu_torch import _build
 
-def karplus_strong_batch(
+KARPLUS_KERNEL = _build.LaunchCounter("karplus")
+
+
+def karplus_strong_batch_plain(
     initial_delay_lines: torch.Tensor,  # (B, L)
     total_samples: int,
     feedback_decay_factor: float,
@@ -53,6 +62,52 @@ def karplus_strong_batch(
         filtered = one_minus_b * cur + b * two_point_average
         torch.mul(g, filtered, out=buf[:, lo + 1 + delay_len : lo + 1 + 2 * delay_len])
     return buf[:, 1 : 1 + total]
+
+
+def karplus_strong_batch_cuda(
+    initial_delay_lines: torch.Tensor,  # (B, L)
+    total_samples: int,
+    feedback_decay_factor: float,
+    lowpass_blend: float,
+) -> torch.Tensor:
+    """Kernel K3 on a CUDA tensor: (B, total_samples) float32, one launch."""
+    if initial_delay_lines.device.type != "cuda":
+        raise TypeError(f"Karplus-Strong kernel takes a CUDA tensor, got one on {initial_delay_lines.device}")
+    x = initial_delay_lines.to(torch.float32).contiguous()
+    batch, delay_len = x.shape
+    total = int(total_samples)
+    if delay_len < 1 or total < 0:
+        raise ValueError(f"Karplus-Strong needs a delay line and total_samples >= 0, got {delay_len}, {total}")
+    out = torch.empty((batch, total), dtype=torch.float32, device=x.device)
+    if batch == 0 or total == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.aa_karplus(
+            x.data_ptr(), out.data_ptr(), batch, delay_len, total,
+            float(feedback_decay_factor), float(lowpass_blend), stream,
+        )
+    _build.check(code, "karplus kernel")
+    KARPLUS_KERNEL.launches += 1
+    return out
+
+
+def karplus_strong_batch(
+    initial_delay_lines: torch.Tensor,  # (B, L)
+    total_samples: int,
+    feedback_decay_factor: float,
+    lowpass_blend: float,
+) -> torch.Tensor:
+    """(B, total_samples) float32 outputs of B same-pitch strings on the
+    device of `initial_delay_lines`: kernel K3 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    device = initial_delay_lines.device.type
+    if device == "cuda":
+        return karplus_strong_batch_cuda(initial_delay_lines, total_samples, feedback_decay_factor, lowpass_blend)
+    if device == "cpu":
+        return karplus_strong_batch_plain(initial_delay_lines, total_samples, feedback_decay_factor, lowpass_blend)
+    raise ValueError(f"unsupported device {initial_delay_lines.device}")
 
 
 def karplus_strong_scan(

@@ -25,6 +25,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
        K2 STFT magnitude: 16 rows x 2^20 at (4096, 512) and at (8192, 512)
           with the modal k_out; max |err| / max(ref) < 1e-5; library call
           torch.stft(center=False, Hann) + abs;
+     (K3 and K4 run on the gen CLI's and the reports' paths, and are held
+     to their plain versions in phases 9 and 10; ptxas' report must show
+     no spills for K1, K3 and K4);
   3. write a deterministic 16-tap stereo bundle of 2^20 samples per tap
      (bench.py's recipe) under build/;
   4. drive `bundle --no-plots` of the port through its CLI entry, 8 taps
@@ -97,8 +100,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      timed in phase 2 under the kernels line's `shapes` with
      "path": "per_file".
   9. the rest of the per-file commands and the gen CLI through their CLI
-     entries on the card, none of which launches K1 or K2 (checked: 0 and
-     0 in every run): filter, filter / fr / groupdelay --exact-grid (host
+     entries on the card, none of which launches K1, K2 or K4 (checked: 0
+     in every run; K3 once in each gen run, 0 elsewhere): filter, filter / fr / groupdelay --exact-grid (host
      float64), zplane at its default order 256 and with --zeros --ridge
      1e-5, and ir --json, on the tap and on verb_ir.wav, each cold, warm
      (under torch.profiler on the tap) and with --device cpu (zplane's CPU
@@ -110,8 +113,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      peak memory, and its relative Frobenius error against a float64 Gram
      on the card (<= 1e-5). `gen --channel_mode stereo all` and
      `karplus_pluck --freq 110` / `--freq 4000` on the card against
-     `--device cpu` (WAV files identical but for 1 LSB in Karplus-Strong),
-     with the Karplus-Strong device time under torch.profiler.
+     `--device cpu` (WAV files byte-identical), with the Karplus-Strong
+     device time and events under torch.profiler. K3 (csrc/karplus.cu)
+     against its plain version on the card, bit for bit: at the gen CLI's
+     calls (one string, 2 s, L = 12 and 436) and at L 2, 12, 31, 32, 33,
+     436 and 2400 with 1 and 8 strings and 2 s + 1 sample; CUDA-event
+     times of both and the bound (`per_file_rest.karplus_kernel`).
  10. the plot reports (outputs under build/chip_smoke_plots/): the tap's
      report in process with its render jobs recorded, not drawn (K1 and
      K2 launched 2 and 2, exactly; the tap decoded once cold, the WAV read
@@ -122,7 +129,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the markdown agreeing; the golden IR's report against
      tests/golden/verb_report_golden.md (golden_utils.compare_reports);
      the spectrogram's display pooling alone on the report's plane (time,
-     bound, peak memory, profile, the image equal to the CPU's); the plot
+     bound, peak memory, profile, the image equal to the CPU's), and K4
+     (csrc/pool.cu) against its plain version on the card, int16 for int16:
+     the report's call (column pooling 2), column pooling 1 and 3 with the
+     channels' valid counts apart, a channel with no valid frame; times of
+     the wrapper, of the launch alone and of the plain version; K4 launched
+     at least once a report on every report path, K3 never; the plot
      bundle runner over a 4-tap view with its jobs recorded (8 and 8).
      Where matplotlib imports: `report` through the CLI entry (cold, warm,
      plain, profiled; 15 PNGs, the ones the markdown embeds), the plot
@@ -180,14 +192,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      kernel launched (phase 9's rules: filter's summaries within its
      tolerances, zplane's pole and zero counts exact and radii within
      8e-2, the deconvolved IR within tests/_fuzz_spaces.py's limits of the
-     CPU run's peak, ir's JSON and stdout equal, gen's WAVs byte-identical but
-     Karplus-Strong's within 1 LSB; the worst ratio per command); two
+     CPU run's peak, ir's JSON and stdout equal, gen's WAVs byte-identical,
+     K3 launched once in a Karplus-Strong draw; the worst ratio per
+     command); two
      meshes on cuda:0, of 1 and of 2 shards, each over 1-8 of the bundle's
      taps with a drawn EngineConfig and chunk, bit-equal to the
      single-device run with the same taps a chunk, K1 / K2 launched as
      expected_engine_launches says per shard. A failing draw raises;
      `python3 chip_smoke.py --fuzz-only --fuzz-seed S` reruns phases 1, 3
      and 12 alone with the printed seed.
+
+The kernels line lists K1-K4, each with its launches on its own path
+(`bundle` for K1 and K2, `gen karplus_pluck --freq 4000` for K3, the
+recorded report for K4) and on every driven path (`launches_by_path`);
+every path runs with all four counters set to 0 before it, and an engine
+path fails if K1 or K2 never launched or K3 or K4 did.
 
 Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
 package (audio_analysis_tpu). The last lines are the per-file JSON, the
@@ -217,6 +236,11 @@ TAPS = 16
 N = 1 << 20
 CHUNK_TAPS = 8
 MAIN_PATH = "bundle"
+# the paths K3 and K4 run on, whose launches the kernels line reports
+KARPLUS_PATH = "gen karplus_pluck --freq 4000"
+POOL_PATH = "report (figures recorded)"
+# every kernel's launch counter name: K1, K2, K3, K4
+KERNELS = ("edc", "stft", "karplus", "pool")
 # K1's planes under --bands-decimate at N = 2^20: (16, N/32) and (16, N/4)
 # per three-band chunk of 8 stereo taps, (12, N/64) per third-octave tap
 DECIMATED_EDC_SHAPES = ((16, N // 32), (16, N // 4), (12, N // 64))
@@ -448,12 +472,13 @@ def check_stft(torch, stft, dev, g, k_out):
     return worst, shapes
 
 
-def kernel_entry(name, source, replaces, launches_by_path, err, shapes) -> dict:
+def kernel_entry(name, source, replaces, launches_by_path, err, shapes, path=MAIN_PATH) -> dict:
     """One kernel of the kernels line: times, bounds and library times summed
-    over its calls in one chunk of the main path (`bundle --no-plots`), with
-    each call's numbers under `shapes` (calls of another path carry its
-    name under "path" and stay out of the sums). `launches` is the main
-    path's count; `launches_by_path` holds every driven path's."""
+    over its calls in one run of its own path (`path`: one chunk of the main
+    path, `bundle --no-plots`, for K1 and K2; KARPLUS_PATH for K3, POOL_PATH
+    for K4), with each call's numbers under `shapes` (calls of another path
+    carry its name under "path" and stay out of the sums). `launches` is
+    that path's count; `launches_by_path` holds every driven path's."""
     main = [sh for sh in shapes if "path" not in sh]
     libs = [sh["library_ms"] for sh in main]
     ms = sum(sh["ms"] for sh in main)
@@ -461,7 +486,7 @@ def kernel_entry(name, source, replaces, launches_by_path, err, shapes) -> dict:
     kinds = {sh["bound_by"] for sh in main}
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches_by_path[MAIN_PATH], "launches_by_path": launches_by_path,
+        "launches": launches_by_path[path], "path": path, "launches_by_path": launches_by_path,
         "max_abs_err": err,
         "ms": ms, "plain_ms": sum(sh["plain_ms"] for sh in main),
         "bound_ms": bound_ms, "bound_by": kinds.pop() if len(kinds) == 1 else "mixed",
@@ -626,8 +651,10 @@ HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC
 
 def host_launches(prof) -> dict:
     """From one torch.profiler trace: the host-side launch calls by name,
-    and the device events that ran inside graph launches (their correlation
-    id is a cudaGraphLaunch's), K1's and K2's among them."""
+    the device events that ran inside graph launches (their correlation id
+    is a cudaGraphLaunch's), K1's and K2's among them, and every device
+    event of kineto's raw results (device_busy counts those of
+    prof.events(), which can hold fewer)."""
     calls = {name: 0 for name in HOST_LAUNCH_CALLS}
     graph_launches = set()
     events = list(prof.profiler.kineto_results.events())
@@ -637,12 +664,14 @@ def host_launches(prof) -> dict:
             if e.name() == "cudaGraphLaunch":
                 graph_launches.add(e.correlation_id())
     in_graphs = {"all": 0, "edc": 0, "stft": 0}
+    device_events = 0
     for e in events:
+        device_events += e.device_type().name == "CUDA"
         if e.device_type().name == "CUDA" and e.correlation_id() in graph_launches:
             in_graphs["all"] += 1
             for kernel, name in (("edc", "edc_kernel"), ("stft", "stft_mag_kernel")):
                 in_graphs[kernel] += name in e.name()
-    return {"host_calls": calls, "device_events_in_graphs": in_graphs}
+    return {"host_calls": calls, "device_events_in_graphs": in_graphs, "kineto_device_events": device_events}
 
 
 def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
@@ -937,15 +966,16 @@ def other_loads(torch, cli_main, root: Path, dev, counters) -> dict:
     return out
 
 
-def count_launches(counters, fn):
+def count_launches(counters, fn, path_kernels=("edc", "stft")):
     """fn() with every kernel's launch counter set to 0 just before and read
-    just after; raises if a kernel of the path never launched."""
+    just after; raises if a kernel of the path (`path_kernels`: the engine
+    paths' K1 and K2 by default) never launched, or another one did."""
     for counter in counters:
         counter.launches = 0
     result = fn()
     launches = {c.name: c.launches for c in counters}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if not all(bool(n) == (name in path_kernels) for name, n in launches.items()):
+        raise AssertionError(f"the path's kernels {path_kernels} never launched, or another did: {launches}")
     return result, launches
 
 
@@ -955,10 +985,13 @@ def plain_versions():
     eager (`engine.eager()`, which clears the graph cache): a graph captured
     with the kernels would replay them under the swap."""
     from audio_analysis_tpu_torch.engine import eager
-    from audio_analysis_tpu_torch.ops import edc, stft
+    from audio_analysis_tpu_torch.ops import display, edc, stft
+    from audio_analysis_tpu_torch.signals import torchgen
 
     with eager(), mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain), \
+            mock.patch.object(torchgen, "karplus_strong_batch_cuda", torchgen.karplus_strong_batch_plain), \
+            mock.patch.object(display, "_pooled_image_cuda", display._pooled_image_plain):
         yield
 
 
@@ -1260,8 +1293,8 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
         torch.cuda.reset_peak_memory_stats(dev)
         (cold, kernel_out), launches = read_launches(counters, lambda: run(full("kernel")))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        if (launches["edc"], launches["stft"]) != want:
-            raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        if (launches["edc"], launches["stft"], launches["karplus"], launches["pool"]) != (*want, 0, 0):
+            raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}, K3 0, K4 0")
         warm, _ = run(full("kernel"))
         busy = device_busy(torch, lambda: run(full("kernel"))) if wav != verb else None
         with plain_versions():
@@ -1457,7 +1490,8 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
     results["ar_gram"] = ar_gram_check(torch, tap, dev)
 
     # gen: the default tone set in stereo, and Karplus-Strong at 110 Hz
-    # (L = 436, 220 steps) and at 4 kHz (L = 12, 7999 steps)
+    # (L = 436, 220 periods) and at 4 kHz (L = 12, 7999 periods); each makes
+    # one K3 launch (the tone set's Karplus-Strong pluck is at 110 Hz)
     gen_runs = [
         ("gen all --channel_mode stereo", ["--channel_mode", "stereo"], ["all"]),
         ("gen karplus_pluck --freq 110", [], ["karplus_pluck", "--freq", "110"]),
@@ -1472,8 +1506,8 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
                                                   *command])
 
         (cold, card_out), launches = read_launches(counters, lambda: gen("card"))
-        if launches != zero:
-            raise AssertionError(f"{label}: K1/K2 launches {launches}, expected none")
+        if launches != {**zero, "karplus": 1}:
+            raise AssertionError(f"{label}: launches {launches}, expected K3 1 and no other")
         launches_by_path[label] = launches
         warm, _ = gen("card")
         busy = device_busy(torch, lambda: gen("card"))
@@ -1483,22 +1517,16 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
         names = sorted(p.name for p in dirs["cpu"].glob("*.wav"))
         if not names or sorted(p.name for p in dirs["card"].glob("*.wav")) != names:
             raise AssertionError(f"{label}: WAV files {names}")
-        identical = []
         for name in names:
-            a, b = (dirs["card"] / name).read_bytes(), (dirs["cpu"] / name).read_bytes()
-            identical.append(a == b)
-            if a != b:
-                x, y = wavfile.read(dirs["card"] / name)[1], wavfile.read(dirs["cpu"] / name)[1]
-                lsb = int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
-                if not name.startswith("karplus_pluck") or x.shape != y.shape or lsb > 1:
-                    raise AssertionError(f"{label}: {name} differs between the card and the CPU ({lsb} LSB)")
+            if (dirs["card"] / name).read_bytes() != (dirs["cpu"] / name).read_bytes():
+                raise AssertionError(f"{label}: {name} differs between the card and the CPU")
         results[label] = {"cold_s": cold, "warm_s": warm, "cpu_s": cpu_s, "warm_profiled": busy,
-                          "launches": launches, "wavs_identical": all(identical)}
-        log(f"{label}: cold {cold:.3f} s, warm {warm:.3f} s, cpu {cpu_s:.3f} s, {len(names)} WAVs, "
-            f"identical to the CPU run: {all(identical)}; warm under the profiler: {busy}")
+                          "launches": launches, "wavs_identical": True}
+        log(f"{label}: cold {cold:.3f} s, warm {warm:.3f} s, cpu {cpu_s:.3f} s, {len(names)} WAVs identical to "
+            f"the CPU run; launches {launches}; warm under the profiler: {busy}")
 
-    # the Karplus-Strong recurrence alone on the card (host clock ending in
-    # a synchronize: the loop is launch-bound)
+    # the Karplus-Strong recurrence alone on the card, by host clock ending
+    # in a synchronize (comparable with the per-period loop's numbers)
     ks = {}
     for freq in (110.0, 4000.0):
         delay = max(2, int(round(SR / freq)))
@@ -1519,7 +1547,59 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
         log(f"Karplus-Strong {freq:.0f} Hz (L = {delay}): {min(walls) * 1e3:.2f}-{max(walls) * 1e3:.2f} ms; "
             f"under the profiler {ks[f'{freq:.0f}']['profiled']}")
     results["karplus_strong_alone"] = ks
+    err, shapes = karplus_check(torch, dev)
+    results["karplus_kernel"] = {"max_abs_err": err, "shapes": shapes}
     return results
+
+
+# K3's delay lengths on the card: the warp path's ends (2, 31, 32), the
+# block path's start (33), and the gen CLI's 4 kHz (12), 110 Hz (436) and
+# 20 Hz (2400)
+KARPLUS_DELAYS = (2, 12, 31, 32, 33, 436, 2400)
+
+
+def karplus_check(torch, dev) -> tuple:
+    """K3 against its plain version on the card, bit for bit (int32
+    patterns): at the gen CLI's calls (one string, 2 s: L = 12 at 4 kHz,
+    the kernels line's own path, and L = 436 at 110 Hz) and at every L of
+    KARPLUS_DELAYS with 1 and 8 strings and 2 s + 1 sample (a multiple of
+    none of them). CUDA-event times of both (the plain loop's include its
+    host enqueue, which is what it costs), and the bound: the line read and
+    the output written once at 3.35 TB/s, or 6 fp32 operations a sample at
+    67 TFLOP/s. Returns (max abs error, per-call shapes)."""
+    from audio_analysis_tpu_torch.signals import torchgen
+
+    g = torch.Generator().manual_seed(3)
+    cases = [(1, 12, 2 * SR, None), (1, 436, 2 * SR, "gen karplus_pluck --freq 110")]
+    cases += [(strings, delay, 2 * SR + 1, "karplus_strong_alone") for delay in KARPLUS_DELAYS for strings in (1, 8)]
+    worst, shapes = 0.0, []
+    for strings, delay, total, path in cases:
+        init = (torch.rand(strings, delay, generator=g) * 2.0 - 1.0).to(dev)
+
+        def kernel():
+            return torchgen.karplus_strong_batch_cuda(init, total, 0.996, 0.5)
+
+        def plain():
+            return torchgen.karplus_strong_batch_plain(init, total, 0.996, 0.5)
+
+        got, ref = kernel(), plain().contiguous()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K3 karplus ({strings}, {delay}, {total}): not bit-equal to the plain version "
+                                 f"(max err {err})")
+        worst = max(worst, err)
+        k = time_ms(kernel)
+        p = time_ms(plain, reps=2)
+        b, by = bound(strings * (delay + total) * 4, strings * total * 6.0)
+        periods = -(-total // delay) - 1
+        shape = {"shape": [strings, delay, total], "periods": periods, "ms": k, "plain_ms": p, "bound_ms": b,
+                 "bound_by": by, "library_ms": None, "us_per_period": k * 1e3 / max(periods, 1)}
+        shapes.append(shape if path is None else {**shape, "path": path})
+        log(f"K3 karplus ({strings} strings, L = {delay}, {total} samples, {periods} periods): bit-equal to the "
+            f"plain version; kernel {k:.3f} ms ({shape['us_per_period'] * 1e3:.1f} ns a period), plain {p:.3f} ms, "
+            f"bound {b * 1e3:.3f} us ({by})")
+    return worst, shapes
 
 
 def count_decodes(fn):
@@ -1564,7 +1644,7 @@ def pooled_image_check(torch, tap: Path, dev) -> dict:
     memory, the image against the one computed from the same plane on the
     CPU, its bound (the selected bins read once and the int16 image
     written once at 3.35 TB/s), and one call under torch.profiler (device
-    busy time and the largest device items)."""
+    busy time and the largest device items). Then K4 alone (pool_check)."""
     import numpy as np
 
     from audio_analysis_tpu_torch.analyses._common import FileDsp
@@ -1598,7 +1678,58 @@ def pooled_image_check(torch, tap: Path, dev) -> dict:
     log(f"pooled display image {tuple(plane.shape)} -> {[im.shape for im in images]}: {ms:.3f} ms, bound "
         f"{b * 1e3:.1f} us ({by}), {b / ms:.2%} of bound; peak {peak:.3f} GiB; card == CPU")
     log(f"  under the profiler: {busy}")
+    out["k4"] = pool_check(torch, display, plane, frames, dev)
     return out
+
+
+def pool_check(torch, display, plane, frames, dev) -> dict:
+    """K4 (ops.display._pooled_image on the card) against its plain
+    version on the same card plane, int16 for int16: the report's call
+    (the tap's valid frames, 720 rows, its column pooling), column pooling
+    1 and 3 with the two channels' valid counts apart, and a channel with
+    no valid frame. CUDA-event times of the wrapper (colour percentiles and
+    the launch), of the launch alone through the C entry, and of the plain
+    version; the bound is pooled_image_check's."""
+    from audio_analysis_tpu_torch import _build
+
+    t = plane.shape[1]
+    i0, i1 = display.freq_selection(4096, SR, 20.0, 20_000.0)
+    key = (4096, SR, i0, i1, 20.0, 20_000.0, 720)
+    report_pool = -(-int(frames.max()) // 1200) if int(frames.max()) > 1800 else 1
+    cases = [(tuple(int(v) for v in frames), report_pool, None), ((t, 900), 1, "split valid counts"),
+             ((t - 7, t // 3), 3, "split valid counts"), ((t, 0), 2, "a channel with no valid frame")]
+    lib, worst, shapes = _build.library(), 0, []
+    for valid, col_pool, path in cases:
+        nf = torch.tensor(valid, dtype=torch.int64, device=dev)
+        got = display._pooled_image(plane, nf, key, col_pool)
+        ref = display._pooled_image_plain(plane, nf, key, col_pool)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError(f"K4 pool {valid} col_pool {col_pool}: not equal to the plain version")
+        worst = max(worst, int((got.int() - ref.int()).abs().max()))
+        spans = display._row_spans_on(key, dev)
+        pcts = display._colour_percentiles(plane, display._valid_frames(plane, nf), i0, i1).contiguous()
+        out = torch.empty_like(got)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch_alone():
+            _build.check(lib.aa_pool_image(plane.data_ptr(), nf.data_ptr(), spans.data_ptr(), pcts.data_ptr(),
+                                           out.data_ptr(), plane.shape[0], t, plane.shape[2], i0, 720, col_pool,
+                                           stream), "pool kernel")
+
+        k = time_ms(lambda: display._pooled_image(plane, nf, key, col_pool))
+        alone = time_ms(launch_alone)
+        if not torch.equal(out, got):
+            raise AssertionError(f"K4 pool {valid}: the C entry alone and the wrapper differ")
+        p = time_ms(lambda: display._pooled_image_plain(plane, nf, key, col_pool))
+        read = sum(min(v, t) for v in valid) * (i1 - i0) * 4
+        b, by = bound(read + got.numel() * 2, 0.0)
+        shape = {"shape": [*plane.shape, 720], "valid": list(valid), "col_pool": col_pool, "ms": k,
+                 "launch_alone_ms": alone, "plain_ms": p, "bound_ms": b, "bound_by": by, "library_ms": None}
+        shapes.append(shape if path is None else {**shape, "path": path})
+        log(f"K4 pool {tuple(plane.shape)} valid {valid} col_pool {col_pool}: equal to the plain version; wrapper "
+            f"{k:.3f} ms (the launch alone {alone:.4f} ms), plain {p:.3f} ms, bound {b * 1e3:.1f} us ({by})")
+    return {"max_abs_err": float(worst), "shapes": shapes}
 
 
 def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dict) -> dict:
@@ -1653,8 +1784,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     torch.cuda.reset_peak_memory_stats(dev)
     ((cold, kernel_md, kernel_jobs), launches), cold_decodes = count_decodes(
         lambda: read_launches(counters, lambda: recorded(out_dir / "rec_k" / "tap00")))
-    if (launches["edc"], launches["stft"]) != (2, 2):
-        raise AssertionError(f"report (figures recorded): launches {launches}, expected K1 2, K2 2")
+    if (launches["edc"], launches["stft"], launches["karplus"]) != (2, 2, 0) or launches["pool"] < 1:
+        raise AssertionError(f"report (figures recorded): launches {launches}, expected K1 2, K2 2, K3 0, K4 1+")
     launches_by_path["report (figures recorded)"] = launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     warm, warm_decodes = count_decodes(lambda: [recorded(out_dir / "rec_k" / "tap00")[0] for _ in range(3)])
@@ -1695,8 +1826,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
         _, launches = read_launches(counters, lambda: bundle_module.run_bundle_report(
             view, bundle_module.BundleRunSettings(reports_subdir="reports_recorded"), dev))
         recorded_s = time.perf_counter() - t0
-    if (launches["edc"], launches["stft"]) != (8, 8):
-        raise AssertionError(f"plot bundle (figures recorded): launches {launches}, expected 8 and 8")
+    if (launches["edc"], launches["stft"], launches["karplus"]) != (8, 8, 0) or launches["pool"] < 4:
+        raise AssertionError(f"plot bundle (figures recorded): launches {launches}, expected 8, 8, 0 and 4+")
     launches_by_path["plot bundle (figures recorded)"] = launches
     out["bundle_recorded_s"] = recorded_s
     log(f"plot bundle of 4 taps (figures recorded): {recorded_s:.3f} s, launches {launches}")
@@ -1735,8 +1866,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
 
     torch.cuda.reset_peak_memory_stats(dev)
     (cold, kernel_text), launches = read_launches(counters, lambda: cli_report("cold"))
-    if (launches["edc"], launches["stft"]) != (2, 2):
-        raise AssertionError(f"report: launches {launches}, expected K1 2, K2 2")
+    if (launches["edc"], launches["stft"], launches["karplus"]) != (2, 2, 0) or launches["pool"] < 1:
+        raise AssertionError(f"report: launches {launches}, expected K1 2, K2 2, K3 0, K4 1+")
     launches_by_path["report"] = launches
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     warm = [cli_report("warm")[0] for _ in range(2)]
@@ -1762,8 +1893,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     for label, subdir, extra in (("thread", "reports_thread", ()), ("processes 2", "reports_procs",
                                                                      ("--plot-processes", "2"))):
         wall, launches = read_launches(counters, lambda: cli_bundle(subdir, *extra))
-        if (launches["edc"], launches["stft"]) != (8, 8):
-            raise AssertionError(f"plot bundle {label}: launches {launches}, expected 8 and 8")
+        if (launches["edc"], launches["stft"], launches["karplus"]) != (8, 8, 0) or launches["pool"] < 4:
+            raise AssertionError(f"plot bundle {label}: launches {launches}, expected 8, 8, 0 and 4+")
         launches_by_path[f"plot bundle ({label})"] = launches
         check_tap_pngs(view / subdir, names)
         timings = json.loads((view / subdir / "plot_timings.json").read_text())
@@ -1787,8 +1918,8 @@ def plots_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: di
     _, launches = read_launches(counters, lambda: cli_main(
         ["watch", "--input", str(view), "--plots", "--max-bundles", "1", "--interval", "0.05"]))
     wall = time.perf_counter() - t0
-    if (launches["edc"], launches["stft"]) != (10, 10):
-        raise AssertionError(f"watch --plots: launches {launches}, expected 10 and 10")
+    if (launches["edc"], launches["stft"], launches["karplus"]) != (10, 10, 0) or launches["pool"] < 4:
+        raise AssertionError(f"watch --plots: launches {launches}, expected 10, 10, 0 and 4+")
     launches_by_path["watch --plots"] = launches
     check_tap_pngs(view / "reports_plots", names)
     out["watch_plots_s"] = wall
@@ -1810,8 +1941,10 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from audio_analysis_tpu_torch.cli.analyse_cli import main
 from audio_analysis_tpu_torch.engine import distributed, graphs
-from audio_analysis_tpu_torch.ops import edc, stft
+from audio_analysis_tpu_torch.ops import display, edc, stft
+from audio_analysis_tpu_torch.signals import torchgen
 
+counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL)
 out_json, argv, addresses = sys.argv[2], sys.argv[3:-3], sys.argv[-3:]
 real_analyze, real_gather, engine_s, sent = distributed.analyze_bundle_multi_host, distributed._all_gather, [], []
 
@@ -1832,7 +1965,8 @@ distributed._all_gather = counted_gather
 torch.empty(0, device="cuda:0")  # the allocator's statistics need a context
 runs = []
 for address in addresses:
-    edc.EDC_KERNEL.launches = stft.STFT_KERNEL.launches = 0
+    for counter in counters:
+        counter.launches = 0
     sent.clear()
     torch.cuda.reset_peak_memory_stats(0)
     before = graphs.STEP_GRAPHS.stats()
@@ -1842,7 +1976,7 @@ for address in addresses:
     after = graphs.STEP_GRAPHS.stats()
     runs.append({"wall_s": time.perf_counter() - t0, "engine_s": engine_s[-1],
                  "graphs": {k: after[k] - before[k] for k in ("captures", "replays")},
-                 "launches": {"edc": edc.EDC_KERNEL.launches, "stft": stft.STFT_KERNEL.launches},
+                 "launches": {c.name: c.launches for c in counters},
                  "peak_device_memory_gib": torch.cuda.max_memory_allocated(0) / 2**30,
                  "gather_bytes_sent": sum(sent), "gathers": len(sent)})
 banned = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "audio_analysis_tpu"))
@@ -1979,13 +2113,13 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
     ]
     job_wall, logs = run_processes(commands, env)
     ranks = [json.loads(p.read_text()) for p in rank_json]
-    total = {"edc": 0, "stft": 0}
+    total = dict.fromkeys(KERNELS, 0)
     for i, r in enumerate(ranks):
         if r["banned_modules"]:
             raise AssertionError(f"rank {i} loaded {r['banned_modules']}")
         for one in r["runs"]:
-            if one["launches"] != {"edc": 2, "stft": 2}:
-                raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2")
+            if one["launches"] != {"edc": 2, "stft": 2, "karplus": 0, "pool": 0}:
+                raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2, K3 0, K4 0")
         # a rank's one chunk: eager in its cold run (no call ahead), captured
         # in its first warm run (the key ended a call), replayed in the second
         if [(one["graphs"]["captures"], one["graphs"]["replays"]) for one in r["runs"]] != [(0, 0), (1, 0), (0, 1)]:
@@ -2276,7 +2410,7 @@ def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
     draws = [("time_axis_finding", {**dataclasses.asdict(EngineConfig()), **TIME_AXIS_FIELDS}),
              ("frame_plane_finding", {**dataclasses.asdict(EngineConfig()), **FRAME_PLANE_FIELDS})]
     draws += [(f"drawn {i}", draw_engine_fields(rng)) for i in range(FUZZ_ENGINE_DRAWS)]
-    worst, totals, replays, peaks = 0.0, {"edc": 0, "stft": 0}, 0, []
+    worst, totals, replays, peaks = 0.0, dict.fromkeys(KERNELS, 0), 0, []
     for i, (label, fields) in enumerate(draws):
         cfg = EngineConfig(**fields)
         fuzz_log("engine", i, seed, {"label": label, **fields})
@@ -2437,7 +2571,7 @@ def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict
     out_dir.mkdir(parents=True, exist_ok=True)
     tap = root / "taps" / "tap00.wav"
     commands = ["decay", "rt60bands", "spectrogram", "waterfall", "modalcloud"] * 2
-    worst, totals = 0.0, {"edc": 0, "stft": 0}
+    worst, totals = 0.0, dict.fromkeys(KERNELS, 0)
     for i, cmd in enumerate(commands):
         argv = draw_per_file_argv(rng, cmd)
         fuzz_log("per_file", i, seed, " ".join(argv))
@@ -2556,16 +2690,17 @@ def fuzz_inputs(out_dir: Path, root: Path) -> dict:
 def fuzz_rest(torch, cli_main, root: Path, counters, rng, seed: int) -> dict:
     """Drawn flag sets of filter, zplane, deconvolve and ir, and drawn gen
     subcommands (Karplus-Strong first), each through its CLI entry on the
-    card and with --device cpu; neither kernel launches (both counts 0).
+    card and with --device cpu; K1, K2 and K4 launch 0 times, K3 once in a
+    Karplus-Strong draw and 0 times in the others.
     The card run against the CPU run: filter's summaries within phase 9's
     tolerances (its exact-grid tolerance with --exact-grid), zplane by
     compare_zplane (pole counts exact, radii within REST_TOLERANCES, an
     unstable-count flip logged) with equal zero counts, the deconvolved IR
     within tests/_fuzz_spaces.py's DECONVOLVE_TOL (float32 against float32)
     of the CPU run's peak with equal WAV headers, ir's --json and stdout
-    equal (the tightest it holds), gen's WAV bytes equal but
-    Karplus-Strong's (1 LSB). The worst ratio of a difference to its limit
-    per command."""
+    equal (the tightest it holds), gen's WAV bytes equal (K3 rounds as the
+    plain version does). The worst ratio of a difference to its limit per
+    command."""
     import shutil
 
     import numpy as np
@@ -2582,8 +2717,8 @@ def fuzz_rest(torch, cli_main, root: Path, counters, rng, seed: int) -> dict:
     out_dir.mkdir(parents=True)
     inputs = fuzz_inputs(out_dir, root)
     zero = {c.name: 0 for c in counters}
-    worst = {cmd: 0.0 for cmd in ("filter", "zplane", "deconvolve", "ir", "gen")}
-    flips, identical = [], []
+    worst = {cmd: 0.0 for cmd in ("filter", "zplane", "deconvolve", "ir")}
+    flips, identical, karplus_launches = [], [], 0
     for i, cmd in enumerate(FUZZ_REST_COMMANDS):
         argv, label = draw_rest_argv(rng, cmd, inputs)
         fuzz_log("rest", i, seed, f"{' '.join(argv)} on {label}")
@@ -2648,27 +2783,21 @@ def fuzz_rest(torch, cli_main, root: Path, counters, rng, seed: int) -> dict:
                                                   "cuda" if side == "card" else "cpu", cmd, *flags])[1]
 
         card_out, launches = read_launches(counters, lambda: gen("card"))
-        if launches != zero:
-            raise AssertionError(f"gen fuzz draw {j}: launches {launches}, expected none")
+        if launches != {**zero, "karplus": int(cmd == "karplus_pluck")}:
+            raise AssertionError(f"gen fuzz draw {j}: launches {launches}, expected K3 {int(cmd == 'karplus_pluck')}")
+        karplus_launches += launches["karplus"]
         if card_out.replace(str(dirs["card"]), "D") != gen("cpu").replace(str(dirs["cpu"]), "D"):
             raise AssertionError(f"gen fuzz draw {j}: stdout differs between the card and the CPU")
         wavs = sorted(p.name for p in dirs["cpu"].glob("*.wav"))
         if not wavs or sorted(p.name for p in dirs["card"].glob("*.wav")) != wavs:
             raise AssertionError(f"gen fuzz draw {j}: WAV files {wavs}")
         for name in wavs:
-            a, b = (dirs["card"] / name).read_bytes(), (dirs["cpu"] / name).read_bytes()
-            identical.append(a == b)
-            if a == b:
-                continue
-            x, y = wavfile.read(dirs["card"] / name)[1], wavfile.read(dirs["cpu"] / name)[1]
-            lsb = int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max()) if x.shape == y.shape else math.inf
-            if cmd != "karplus_pluck" or len(a) != len(b) or a[:a.index(b"data") + 8] != b[:b.index(b"data") + 8] \
-                    or lsb > 1:
-                raise AssertionError(f"gen fuzz draw {j}: {name} differs between the card and the CPU ({lsb} LSB)")
-            worst["gen"] = max(worst["gen"], float(lsb))
+            identical.append((dirs["card"] / name).read_bytes() == (dirs["cpu"] / name).read_bytes())
+            if not identical[-1]:
+                raise AssertionError(f"gen fuzz draw {j}: {name} differs between the card and the CPU")
     out = {"draws": len(FUZZ_REST_COMMANDS) + FUZZ_GEN_DRAWS, "worst_ratio_card_vs_cpu": worst,
            "unstable_count_flips": flips, "gen_wavs_identical": f"{sum(identical)} of {len(identical)}",
-           "launches": {"edc": 0, "stft": 0}, "card": card_line()}
+           "launches": {**zero, "karplus": karplus_launches}, "card": card_line()}
     log(f"rest fuzz: worst ratio card vs cpu per command {worst}; gen WAVs byte-identical {out['gen_wavs_identical']}; "
         f"{out['card']}")
     return out
@@ -2686,7 +2815,7 @@ def fuzz_mesh(torch, root: Path, dev, counters, rng, seed: int) -> dict:
     from audio_analysis_tpu_torch.io import open_bundle_chunks_i16
 
     _meta, lengths, _names, n_max, loader = open_bundle_chunks_i16(root)
-    draws, totals = [], {"edc": 0, "stft": 0}
+    draws, totals = [], dict.fromkeys(KERNELS, 0)
     for i in range(FUZZ_MESH_DRAWS):
         shards, taps, chunk = 1 + i % 2, int(rng.integers(1, 9)), int(rng.integers(1, 5))
         fields = draw_engine_fields(rng)
@@ -2733,7 +2862,7 @@ def fuzz_phase(torch, cli_main, root: Path, dev, counters, launches_by_path: dic
     out["rest"] = fuzz_rest(torch, cli_main, root, counters, rng, seed)
     out["mesh"] = fuzz_mesh(torch, root, dev, counters, rng, seed)
     launches_by_path["fuzz"] = {
-        name: sum(out[part]["launches"][name] for part in ("engine", "per_file", "mesh")) for name in ("edc", "stft")
+        name: sum(out[part]["launches"][name] for part in ("engine", "per_file", "rest", "mesh")) for name in KERNELS
     }
     out["seconds"] = time.perf_counter() - t0
     log(f"fuzz: {out}")
@@ -2779,7 +2908,8 @@ def main(argv=None) -> int:
     from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, graphs
     from audio_analysis_tpu_torch.engine.batch import modal_tables
     from audio_analysis_tpu_torch.io import native, read_bundle_meta, write_bundle
-    from audio_analysis_tpu_torch.ops import edc, stft
+    from audio_analysis_tpu_torch.ops import display, edc, stft
+    from audio_analysis_tpu_torch.signals import torchgen
 
     # 1. build
     t0 = time.perf_counter()
@@ -2789,9 +2919,10 @@ def main(argv=None) -> int:
     phases["ptxas"] = ptxas_report(lib_path.with_suffix(".log").read_text())
     for name, info in phases["ptxas"].items():
         log(f"ptxas {name}: {info}")
-    edc_ptxas = phases["ptxas"].get("edc_kernel")
-    if not edc_ptxas or edc_ptxas.get("spill_store_bytes") or edc_ptxas.get("spill_load_bytes"):
-        raise AssertionError(f"K1 edc_kernel missing from ptxas' report or spilling: {edc_ptxas}")
+    for kernel in ("edc_kernel", "karplus_warp_kernel", "karplus_block_kernel", "pool_kernel"):
+        info = phases["ptxas"].get(kernel)
+        if not info or info.get("spill_store_bytes") or info.get("spill_load_bytes"):
+            raise AssertionError(f"{kernel} missing from ptxas' report or spilling: {info}")
 
     # 2. kernels vs plain versions on the card
     if not args.fuzz_only:
@@ -2810,7 +2941,7 @@ def main(argv=None) -> int:
     if not (root / "meta.json").exists() or len(read_bundle_meta(root).taps) != TAPS:
         write_bench_bundle(root, write_bundle)
     phases["bundle_write_s"] = time.perf_counter() - t0
-    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL)
+    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL)
     if args.fuzz_only:
         fuzz = fuzz_phase(torch, cli_main, root, dev, counters, {}, args.fuzz_seed)
         check_modules(FUZZ_MODULES, ("jax", "audio_analysis_tpu"))
@@ -2932,13 +3063,21 @@ def main(argv=None) -> int:
     phases["graph_stats"] = graphs.STEP_GRAPHS.stats()
     log("phases " + json.dumps(phases))
 
+    def by_path(name):
+        return {path: n[name] for path, n in launches_by_path.items()}
+
+    k3, k4 = rest["karplus_kernel"], plots["pooled_image"]["k4"]
     kernels = [
         kernel_entry("schroeder_edc_db", "audio_analysis_tpu_torch/csrc/edc.cu",
-                     "audio_analysis_tpu/ops/pallas_kernels.py:143",
-                     {path: n["edc"] for path, n in launches_by_path.items()}, edc_err, edc_shapes),
+                     "audio_analysis_tpu/ops/pallas_kernels.py:143", by_path("edc"), edc_err, edc_shapes),
         kernel_entry("stft_magnitude", "audio_analysis_tpu_torch/csrc/stft.cu",
-                     "audio_analysis_tpu/ops/pallas_stft.py:219",
-                     {path: n["stft"] for path, n in launches_by_path.items()}, stft_err, stft_shapes),
+                     "audio_analysis_tpu/ops/pallas_stft.py:219", by_path("stft"), stft_err, stft_shapes),
+        kernel_entry("karplus_strong", "audio_analysis_tpu_torch/csrc/karplus.cu",
+                     "audio_analysis_tpu/signals/jaxgen.py:46", by_path("karplus"), k3["max_abs_err"], k3["shapes"],
+                     path=KARPLUS_PATH),
+        kernel_entry("pooled_log_freq_image", "audio_analysis_tpu_torch/csrc/pool.cu",
+                     "audio_analysis_tpu/ops/display.py:151", by_path("pool"), k4["max_abs_err"], k4["shapes"],
+                     path=POOL_PATH),
     ]
     for k in kernels:
         numbers = [k["max_abs_err"], k["ms"], k["plain_ms"], k["bound_ms"]]

@@ -1,6 +1,7 @@
-// Host stand-in for the CUDA subset that csrc/stft.cu and csrc/edc.cu use,
-// so their kernel sources compile with g++ and run on the CPU
-// (tests/test_torch_stft_host.py, tests/test_torch_edc_host.py): every CUDA
+// Host stand-in for the CUDA subset that the kernel sources of csrc/ use
+// (stft.cu, edc.cu, karplus.cu, pool.cu), so they compile with g++ and run
+// on the CPU (tests/test_torch_stft_host.py, tests/test_torch_edc_host.py,
+// tests/test_torch_karplus_host.py, tests/test_torch_pool_host.py): every CUDA
 // thread of a block is a std::thread, __syncthreads is a std::barrier over
 // the block, a warp shuffle is an exchange through a per-warp slot array
 // between two per-warp barriers, blocks run one after another (in reverse
@@ -34,7 +35,13 @@ inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z,
 inline float sqrtf(float a) { return std::sqrt(a); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float __log2f(float a) { return std::log2(a); }
+// the _rn intrinsics: one IEEE operation each (x86-64 float arithmetic is
+// SSE, and g++ in an ISO mode contracts nothing into a fused multiply-add);
+// rintf and fminf are the C library's (rintf rounds half to even in the
+// default rounding mode, as the device's does)
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline unsigned __float_as_uint(float a) {
   unsigned u;
   std::memcpy(&u, &a, 4);
@@ -50,6 +57,7 @@ struct host_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 inline thread_local host_dim3 threadIdx, blockIdx;
+inline host_dim3 blockDim;
 inline std::barrier<>* host_block_barrier = nullptr;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 
@@ -112,6 +120,15 @@ template <class T>
 inline T __shfl_xor_sync(unsigned, T v, unsigned mask) {
   return host_shfl(v, (threadIdx.x % 32) ^ mask);
 }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const unsigned lane = threadIdx.x % 32;
+  return host_shfl(v, lane >= delta ? lane - delta : lane);
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return host_shfl(v, static_cast<unsigned>(src_lane) % 32);
+}
 
 #define __global__
 #define __device__
@@ -156,6 +173,8 @@ inline bool host_reverse_blocks = false;
 template <class Kernel, class... Args>
 void host_launch(Kernel kernel, unsigned blocks, int threads, size_t smem, Args... args) {
   host_shared_memory.assign(smem, 0xff);
+  blockDim.x = static_cast<unsigned>(threads);
+  blockDim.y = blockDim.z = 1;
   for (unsigned i = 0; i < blocks; ++i) {
     const unsigned b = host_reverse_blocks ? blocks - 1 - i : i;
     std::barrier<> barrier(threads);

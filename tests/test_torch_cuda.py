@@ -6,7 +6,9 @@ single-device run (bit-equal), the AR Gram in float32 on the card against a
 float64 Gram on the card, Karplus-Strong on the card against the CPU, the
 report suite's render jobs with the kernels against the plain versions on
 the card (and its markdown against the golden report), and the
-spectrogram's display pooling on the card against the CPU; and the
+spectrogram's display pooling on the card against the CPU; K3
+(Karplus-Strong) and K4 (the display pooling) against their plain
+versions on the card, bit for bit; and the
 engine step's CUDA graphs: a graph run bit-equal to the `eager()` run on a
 2-chunk bundle and a mesh of two shards with the kernels' launches
 unchanged, every step config captured after a warm step that makes no
@@ -54,6 +56,7 @@ from audio_analysis_tpu_torch.engine import batch as batch_module
 from audio_analysis_tpu_torch.engine import graphs
 from audio_analysis_tpu_torch.engine.batch import band_masks
 from audio_analysis_tpu_torch.ops import display, edc, fftmask, spectral, stft
+from audio_analysis_tpu_torch.signals import torchgen
 from test_reference_parity import TOLERANCES
 
 pytestmark = pytest.mark.cuda
@@ -350,6 +353,23 @@ def test_karplus_strong_on_card_equals_cpu(dev, freq):
     assert got.samples.dtype == np.float32 and np.array_equal(got.samples, ref.samples)
 
 
+@pytest.mark.parametrize("strings", [1, 8])
+@pytest.mark.parametrize("delay", [1, 2, 12, 31, 32, 33, 436, 2400])
+def test_karplus_kernel_bit_equal_to_plain_on_card(dev, delay, strings):
+    """K3 (one launch) against its plain version on the card and on the
+    CPU: half a second of audio and a part period, bit for bit."""
+    rng = np.random.default_rng(delay + strings)
+    init = torch.from_numpy(rng.uniform(-1.0, 1.0, (strings, delay)).astype(np.float32))
+    total = 24_000 + delay // 2 + 1 if delay > 1 else 24_000
+    before = torchgen.KARPLUS_KERNEL.launches
+    got = torchgen.karplus_strong_batch(init.to(dev), total, 0.996, 0.5)
+    assert torchgen.KARPLUS_KERNEL.launches == before + 1
+    ref = torchgen.karplus_strong_batch_plain(init.to(dev), total, 0.996, 0.5).contiguous()
+    cpu = torchgen.karplus_strong_batch_plain(init, total, 0.996, 0.5).contiguous()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
 def test_report_render_jobs_on_card_match_plain(dev, tmp_path):
     """The golden IR's report on the card: K1 and K2 launched twice each,
     every render job within its tolerance of the plain versions' run on the
@@ -383,6 +403,22 @@ def test_pooled_image_on_card_equals_cpu(dev, valid):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(card[1], cpu[1], rtol=0, atol=1 / 128)
     np.testing.assert_allclose(card[2], cpu[2], rtol=0, atol=1 / 128)
+
+
+@pytest.mark.parametrize("valid,col_pool", [((2041, 2041), 2), ((2041, 900), 1), ((301, 0), 3)],
+                         ids=["report_shape", "col_pool_1", "valid_zero"])
+def test_pool_kernel_equal_to_plain_on_card(dev, valid, col_pool):
+    """K4 (one launch) against its plain version on the same card plane:
+    the int16 image and its percentile column equal."""
+    rng = np.random.default_rng(7)
+    plane = torch.from_numpy(rng.uniform(-120.0, 0.0, (2, 2041, 2049)).astype(np.float32)).to(dev)
+    nf = torch.tensor(valid, dtype=torch.int64, device=dev)
+    i0, i1 = display.freq_selection(4096, 48_000, 20.0, 20_000.0)
+    key = (4096, 48_000, i0, i1, 20.0, 20_000.0, 720)
+    before = display.POOL_KERNEL.launches
+    got = display._pooled_image(plane, nf, key, col_pool)
+    assert display.POOL_KERNEL.launches == before + 1
+    assert torch.equal(got, display._pooled_image_plain(plane, nf, key, col_pool))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
