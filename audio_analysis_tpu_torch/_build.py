@@ -49,8 +49,8 @@ _SIGNATURES = {
     "aa_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _F32, _P],
     # init, out, strings, delay, total, g, b, stream
     "aa_karplus": [_P, _P, _I64, _I64, _I64, _F32, _F32, _P],
-    # x, num_frames, spans, pcts, out, channels, frames, bins, i0, rows, col_pool, stream
-    "aa_pool_image": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _P],
+    # x, num_frames, spans, scratch, out, channels, frames, bins, i0, n_sel, rows, col_pool, stream
+    "aa_pool_image": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()
@@ -146,6 +146,8 @@ def library() -> ctypes.CDLL:
             lib.aa_error_string.restype = ctypes.c_char_p
             lib.aa_edc_tile_size.argtypes = []
             lib.aa_edc_tile_size.restype = ctypes.c_int
+            lib.aa_pool_scratch_bytes.argtypes = [_I64]
+            lib.aa_pool_scratch_bytes.restype = _I64
             _lib = lib
         return _lib
 

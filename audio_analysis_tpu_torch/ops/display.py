@@ -12,18 +12,21 @@ dequantised planes.
 `pooled_log_freq_image` max-pools the (C, T, F) dB plane on its device
 onto 720 log-frequency rows and at most about 1200 columns, so that only
 the image (about 3 MB for a stereo 2^20-sample tap) and two colour
-percentiles cross to the host in one int16 copy. Row pooling is a range
-maximum over each row's contiguous bin range. `_pooled_image` is the
-wrapper of kernel K4 (csrc/pool.cu, the Hopper counterpart of the JAX
-package's compiled `_pooled_image_dev`): on a CUDA tensor one launch reads
-each row's range directly and quantises; on a CPU tensor the plain torch
-version `_pooled_image_plain` builds a shifted-maximum pyramid along F
-(level k holds max(x[i : i + 2^k])) and takes each row as the maximum of
-two pyramid entries, picked by index (two cached int64 index vectors per
-key). The JAX package picks them with a one-hot selection matmul, a TPU
-workaround for gathers that is not ported. The colour percentiles are
-`selectq.masked_percentiles` on both routes. Max is exact, so the image
-equals the JAX package's to the bit on the same plane.
+percentiles cross to the host in one int16 copy, already in the figure's
+(row, column) orientation. Row pooling is a range maximum over each row's
+contiguous bin range. `_pooled_image` is the wrapper of kernel K4
+(csrc/pool.cu, the Hopper counterpart of the JAX package's compiled
+`_pooled_image_dev`): on a CUDA tensor a memset and three launches read
+each row's range directly, quantise, and select the colour percentiles
+exactly by radix selection on the floats' order-preserving keys; on a CPU
+tensor the plain torch version `_pooled_image_plain` builds a
+shifted-maximum pyramid along F (level k holds max(x[i : i + 2^k])), takes
+each row as the maximum of two pyramid entries, picked by index (two
+cached int64 index vectors per key), and sorts for the percentiles
+(`selectq.masked_percentiles`). The JAX package picks the entries with a
+one-hot selection matmul, a TPU workaround for gathers that is not ported.
+Max and the selection are exact, so the image equals the JAX package's
+(transposed) to the bit on the same plane.
 """
 
 from __future__ import annotations
@@ -52,8 +55,9 @@ def quantize_db_i16(x: torch.Tensor) -> torch.Tensor:
 
 
 def dequantize_db_i16(q) -> np.ndarray:
-    """Inverse of quantize_db_i16, on the host (float32)."""
-    return np.asarray(q).astype(np.float32) * np.float32(1.0 / _DB_SCALE)
+    """Inverse of quantize_db_i16, on the host (float32): one pass, each
+    int16 cast to float32 and scaled by 2^-7 (exact)."""
+    return np.multiply(np.asarray(q), np.float32(1.0 / _DB_SCALE), dtype=np.float32)
 
 
 def _freqs_f32(n_fft: int, sample_rate_hz: int) -> np.ndarray:
@@ -154,9 +158,9 @@ def _valid_frames(mag_tf: torch.Tensor, num_frames: torch.Tensor) -> torch.Tenso
 
 
 def _pooled_image_plain(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
-    """The plain torch version of K4: (C, T'+1, rows) int16, the pooled
+    """The plain torch version of K4: (C, rows, T'+1) int16, the pooled
     image and the two colour percentiles in the first two cells of the
-    extra last column, through the shifted-maximum pyramid."""
+    extra last column, through the shifted-maximum pyramid and a sort."""
     i0, i1, rows = key[2], key[3], key[6]
     first, second = _row_index_on(key, mag_tf.device)
     levels = _log_row_select(*key)[2]
@@ -183,30 +187,31 @@ def _pooled_image_plain(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tup
     image = torch.maximum(stack.index_select(2, first), stack.index_select(2, second))
 
     extras = torch.zeros((c, 1, rows), dtype=torch.float32, device=x.device)
-    extras[:, 0, :2] = pcts
-    return quantize_db_i16(torch.cat([image, extras], dim=1))
+    extras[:, 0, :2] = pcts[:, :rows]
+    return quantize_db_i16(torch.cat([image, extras], dim=1)).transpose(1, 2).contiguous()
 
 
 def _pooled_image_cuda(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
     """Kernel K4 on a CUDA float32 plane: the plain version's output, the
-    percentiles from the same sort, the image in one launch."""
+    image and the exact colour percentiles from one memset of its scratch
+    and three launches."""
     if mag_tf.device.type != "cuda" or mag_tf.dtype != torch.float32:
         raise TypeError(f"pooling kernel takes a CUDA float32 plane, got {mag_tf.dtype} on {mag_tf.device}")
     i0, i1, rows = key[2], key[3], key[6]
     x = mag_tf.contiguous()
     c, t, f = x.shape
-    nf = num_frames.to(device=x.device, dtype=torch.int64).contiguous()
-    pcts = _colour_percentiles(x, _valid_frames(x, nf), i0, i1).contiguous()
-    spans = _row_spans_on(key, x.device)
-    out = torch.empty((c, -(-t // col_pool) + 1, rows), dtype=torch.int16, device=x.device)
+    out = torch.empty((c, rows, -(-t // col_pool) + 1), dtype=torch.int16, device=x.device)
     if c == 0 or rows == 0:
         return out
+    nf = num_frames.to(device=x.device, dtype=torch.int64).contiguous()
+    spans = _row_spans_on(key, x.device)
     lib = _build.library()
+    scratch = torch.empty(lib.aa_pool_scratch_bytes(c), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.aa_pool_image(
-            x.data_ptr(), nf.data_ptr(), spans.data_ptr(), pcts.data_ptr(), out.data_ptr(),
-            c, t, f, i0, rows, int(col_pool), stream,
+            x.data_ptr(), nf.data_ptr(), spans.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            c, t, f, i0, i1 - i0, rows, int(col_pool), stream,
         )
     _build.check(code, "pool kernel")
     POOL_KERNEL.launches += 1
@@ -214,7 +219,7 @@ def _pooled_image_cuda(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tupl
 
 
 def _pooled_image(mag_tf: torch.Tensor, num_frames: torch.Tensor, key: tuple, col_pool: int) -> torch.Tensor:
-    """(C, T'+1, rows) int16 pooled image with the colour percentiles in
+    """(C, rows, T'+1) int16 pooled image with the colour percentiles in
     its extra last column: kernel K4 on a CUDA plane, the plain version on
     a CPU plane."""
     if mag_tf.device.type == "cuda":
@@ -257,18 +262,24 @@ def pooled_log_freq_image(
 
     def run(mag_sub, nf_sub, col_pool):
         q = _pooled_image(mag_sub, nf_sub, key, int(col_pool))
-        return dequantize_db_i16(q.cpu().numpy())
+        if q.device.type != "cuda":
+            return q.numpy()
+        # one copy into page-locked memory, which the card writes directly
+        # (a pageable copy is staged through a driver buffer)
+        host = torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+        host.copy_(q)
+        return host.numpy()
 
     if len(set(pools)) == 1:
-        plane = run(mag_tf, nf, pools[0])
-        planes = [plane[c] for c in range(plane.shape[0])]
+        packed = run(mag_tf, nf, pools[0])
+        per_channel = [packed[c] for c in range(packed.shape[0])]
     else:
-        planes = [run(mag_tf[c : c + 1], nf[c : c + 1], cp)[0] for c, cp in enumerate(pools)]
+        per_channel = [run(mag_tf[c : c + 1], nf[c : c + 1], cp)[0] for c, cp in enumerate(pools)]
 
     images, p995, p5 = [], [], []
-    for c, plane_c in enumerate(planes):
+    for c, q_c in enumerate(per_channel):  # (rows, T_c' + 1) int16
         nvb = max(1, -(-int(nfh[c]) // pools[c]))
-        images.append(plane_c[:nvb].T.copy())  # (rows, T_c')
-        p995.append(float(plane_c[-1, 0]))
-        p5.append(float(plane_c[-1, 1]))
+        images.append(dequantize_db_i16(q_c[:, :nvb]))  # (rows, T_c')
+        p995.append(float(dequantize_db_i16(q_c[0, -1])))
+        p5.append(float(dequantize_db_i16(q_c[1, -1])))
     return images, np.asarray(p995), np.asarray(p5)

@@ -8,14 +8,18 @@ A per-row sort with invalid elements set to +inf, then a gather of the
 order statistics at floor(r) and ceil(r) for the fractional rank
 r = q (n_valid - 1). torch.nanquantile is not used: it refuses inputs above
 2^24 elements, and the group-delay plane of one bundle chunk is larger.
-The fractions q live on the device once per (qs, device): the engine step
-makes no host-to-device copy, so it can be captured in a CUDA graph.
+The fractions q / 100 are divided in float32 on the host, as the JAX
+package's constant folding divides them (torch on a CUDA tensor would
+multiply by a rounded reciprocal, one bit off at q = 5), and live on the
+device once per (qs, device): the engine step makes no host-to-device
+copy, so it can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from audio_analysis_tpu_torch.ops.common import device_cache
@@ -23,8 +27,9 @@ from audio_analysis_tpu_torch.ops.common import device_cache
 
 @device_cache(maxsize=8)
 def _fractions(qs: tuple, device: torch.device) -> torch.Tensor:
-    """qs / 100 as a float32 tensor on the device."""
-    return torch.tensor(qs, dtype=torch.float32, device=device) / 100.0
+    """qs / 100 as a float32 tensor on the device, each an IEEE float32
+    division."""
+    return torch.from_numpy(np.asarray(qs, np.float32) / np.float32(100.0)).to(device)
 
 
 def masked_percentiles(x: torch.Tensor, valid: torch.Tensor, qs: tuple) -> torch.Tensor:

@@ -26,8 +26,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
           with the modal k_out; max |err| / max(ref) < 1e-5; library call
           torch.stft(center=False, Hann) + abs;
      (K3 and K4 run on the gen CLI's and the reports' paths, and are held
-     to their plain versions in phases 9 and 10; ptxas' report must show
-     no spills for K1, K3 and K4);
+     to their plain versions in phases 9 and 10; ptxas' report must list
+     every instance of K1, K3 and K4 (PTXAS_KERNELS) and show no spill in
+     any kernel);
   3. write a deterministic 16-tap stereo bundle of 2^20 samples per tap
      (bench.py's recipe) under build/;
   4. drive `bundle --no-plots` of the port through its CLI entry, 8 taps
@@ -116,9 +117,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      `--device cpu` (WAV files byte-identical), with the Karplus-Strong
      device time and events under torch.profiler. K3 (csrc/karplus.cu)
      against its plain version on the card, bit for bit: at the gen CLI's
-     calls (one string, 2 s, L = 12 and 436) and at L 2, 12, 31, 32, 33,
-     436 and 2400 with 1 and 8 strings and 2 s + 1 sample; CUDA-event
-     times of both and the bound (`per_file_rest.karplus_kernel`).
+     calls (one string, 2 s, L = 12 and 436) and at L 1, 2, 12, 31, 32, 33,
+     64, 436 and 2400 with 1 and 8 strings and 2 s + 1 sample; CUDA-event
+     times of both, the bound and the chain floor (periods x 5 dependent
+     fp32 operations of 4 cycles at the SM clock nvidia-smi reads while
+     the kernels run) (`per_file_rest.karplus_kernel`).
  10. the plot reports (outputs under build/chip_smoke_plots/): the tap's
      report in process with its render jobs recorded, not drawn (K1 and
      K2 launched 2 and 2, exactly; the tap decoded once cold, the WAV read
@@ -129,11 +132,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
      the markdown agreeing; the golden IR's report against
      tests/golden/verb_report_golden.md (golden_utils.compare_reports);
      the spectrogram's display pooling alone on the report's plane (time,
-     bound, peak memory, profile, the image equal to the CPU's), and K4
-     (csrc/pool.cu) against its plain version on the card, int16 for int16:
-     the report's call (column pooling 2), column pooling 1 and 3 with the
-     channels' valid counts apart, a channel with no valid frame; times of
-     the wrapper, of the launch alone and of the plain version; K4 launched
+     bound, peak memory, profile, the image equal to the CPU's; the call's
+     host-clock wall beside its wrapper's, the rest being the int16 copy
+     and the host's work), and K4 (csrc/pool.cu) against its plain version
+     on the card, int16 for int16: the report's call (column pooling 2),
+     column pooling 1 and 3 with the channels' valid counts apart, a
+     channel with no valid frame, and the report's plane with a floor that
+     holds 60% of a channel's cells, with +-0 at the 99.5th percentile,
+     and with NaN and +-inf cells; times of the wrapper, of its C entry
+     alone (a memset and three launches, counted as device events under
+     torch.profiler), of the plain version, and of torch.nanquantile per
+     channel for the two percentiles alone (`library_ms`); K4 launched
      at least once a report on every report path, K3 never; the plot
      bundle runner over a 4-tap view with its jobs recorded (8 and 8).
      Where matplotlib imports: `report` through the CLI entry (cold, warm,
@@ -206,7 +215,10 @@ The kernels line lists K1-K4, each with its launches on its own path
 (`bundle` for K1 and K2, `gen karplus_pluck --freq 4000` for K3, the
 recorded report for K4) and on every driven path (`launches_by_path`);
 every path runs with all four counters set to 0 before it, and an engine
-path fails if K1 or K2 never launched or K3 or K4 did.
+path fails if K1 or K2 never launched or K3 or K4 did. A K4 call is one
+count of its wrapper and 4 device events (a memset, 3 launches; the
+`device_events_per_call` of its shapes), a K3 call one count and one
+launch.
 
 Phases 1-9 must not load matplotlib; no phase may load jax or the JAX
 package (audio_analysis_tpu). The last lines are the per-file JSON, the
@@ -285,6 +297,26 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def kernel_name(mangled: str) -> str:
+    """`name<args>` of a kernel from its mangled name: the identifier that
+    ends in `_kernel` (found by the Itanium length prefixes) and its
+    integer and bool template arguments; the mangled name where none."""
+    # a run of digits may end in the length (hex digits of the namespace's
+    # hash run into it), so each of the run's suffixes is tried
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        start, n = m.start() + len(m.group(1)), int(m.group(1))
+        ident = mangled[start:start + n]
+        if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[start + n:])
+            if not args:
+                return ident
+            values = []
+            for kind, value in re.findall(r"L([a-z])(\d+)E", args.group(1)):
+                values.append(("false", "true")[int(value)] if kind == "b" else value)
+            return f"{ident}<{','.join(values)}>"
+    return mangled
+
+
 def ptxas_report(build_log: str) -> dict:
     """Registers, spill bytes and static shared memory of every kernel
     instance, from the `-Xptxas -v` lines of the build log."""
@@ -292,8 +324,7 @@ def ptxas_report(build_log: str) -> dict:
     for line in build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            m = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", entry.group(1))
-            name = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else entry.group(1)
+            name = kernel_name(entry.group(1))
             report[name] = {}
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -303,6 +334,14 @@ def ptxas_report(build_log: str) -> dict:
             smem = re.search(r"(\d+) bytes smem", line)
             report[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     return report
+
+
+# the kernel instances of K1, K3 and K4 that ptxas must report
+PTXAS_KERNELS = ("edc_kernel", "karplus_thread_kernel<1>", "karplus_thread_kernel<2>", "karplus_thread_kernel<3>",
+                 "karplus_warp_kernel<3>", "karplus_lanes_kernel<2,false>", "karplus_lanes_kernel<4,false>",
+                 "karplus_lanes_kernel<2,true>", "karplus_lanes_kernel<4,true>", "karplus_lanes_kernel<8,true>",
+                 "karplus_ring_kernel",
+                 "pool_pass1_kernel", "pool_refine_kernel")
 
 
 def time_ms(fn, reps: int = 7) -> float:
@@ -1547,15 +1586,39 @@ def per_file_rest(torch, cli_main, root: Path, dev, counters, launches_by_path: 
         log(f"Karplus-Strong {freq:.0f} Hz (L = {delay}): {min(walls) * 1e3:.2f}-{max(walls) * 1e3:.2f} ms; "
             f"under the profiler {ks[f'{freq:.0f}']['profiled']}")
     results["karplus_strong_alone"] = ks
-    err, shapes = karplus_check(torch, dev)
-    results["karplus_kernel"] = {"max_abs_err": err, "shapes": shapes}
+    err, shapes, clocks = karplus_check(torch, dev)
+    results["karplus_kernel"] = {"max_abs_err": err, "shapes": shapes, "sm_clock_mhz_samples": clocks,
+                                 "device_events_per_call": 1}
     return results
 
 
-# K3's delay lengths on the card: the warp path's ends (2, 31, 32), the
-# block path's start (33), and the gen CLI's 4 kHz (12), 110 Hz (436) and
-# 20 Hz (2400)
-KARPLUS_DELAYS = (2, 12, 31, 32, 33, 436, 2400)
+# K3's delay lengths on the card: the one-thread path (1, 2), the warp
+# path's ends (31, 32), the register path's one warp (33, 64) and its
+# warps (436, 2400), and the gen CLI's 4 kHz (12), 110 Hz (436) and 20 Hz
+# (2400)
+KARPLUS_DELAYS = (1, 2, 12, 31, 32, 33, 64, 436, 2400)
+# K3's chain floor: 5 dependent fp32 operations a period, 4 cycles each
+# (Hopper's FADD / FMUL latency)
+KS_CHAIN_CYCLES = 5 * 4
+
+
+@contextlib.contextmanager
+def sm_clock_samples():
+    """The SM clocks (MHz) that nvidia-smi reads every 50 ms while the
+    block runs; the sampler is stopped on the way out."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples: list = []
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        samples.extend(float(v) for v in out.split() if v.strip().replace(".", "", 1).isdigit())
 
 
 def karplus_check(torch, dev) -> tuple:
@@ -1564,42 +1627,53 @@ def karplus_check(torch, dev) -> tuple:
     the kernels line's own path, and L = 436 at 110 Hz) and at every L of
     KARPLUS_DELAYS with 1 and 8 strings and 2 s + 1 sample (a multiple of
     none of them). CUDA-event times of both (the plain loop's include its
-    host enqueue, which is what it costs), and the bound: the line read and
-    the output written once at 3.35 TB/s, or 6 fp32 operations a sample at
-    67 TFLOP/s. Returns (max abs error, per-call shapes)."""
+    host enqueue, which is what it costs), the bound (the line read and the
+    output written once at 3.35 TB/s, or 6 fp32 operations a sample at 67
+    TFLOP/s) and the chain floor: periods x KS_CHAIN_CYCLES at the median SM
+    clock that nvidia-smi read while the kernels were timed. Returns (max
+    abs error, per-call shapes, the clock samples)."""
     from audio_analysis_tpu_torch.signals import torchgen
 
     g = torch.Generator().manual_seed(3)
     cases = [(1, 12, 2 * SR, None), (1, 436, 2 * SR, "gen karplus_pluck --freq 110")]
     cases += [(strings, delay, 2 * SR + 1, "karplus_strong_alone") for delay in KARPLUS_DELAYS for strings in (1, 8)]
     worst, shapes = 0.0, []
-    for strings, delay, total, path in cases:
-        init = (torch.rand(strings, delay, generator=g) * 2.0 - 1.0).to(dev)
+    with sm_clock_samples() as clocks:
+        for strings, delay, total, path in cases:
+            init = (torch.rand(strings, delay, generator=g) * 2.0 - 1.0).to(dev)
 
-        def kernel():
-            return torchgen.karplus_strong_batch_cuda(init, total, 0.996, 0.5)
+            def kernel():
+                return torchgen.karplus_strong_batch_cuda(init, total, 0.996, 0.5)
 
-        def plain():
-            return torchgen.karplus_strong_batch_plain(init, total, 0.996, 0.5)
+            def plain():
+                return torchgen.karplus_strong_batch_plain(init, total, 0.996, 0.5)
 
-        got, ref = kernel(), plain().contiguous()
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            raise AssertionError(f"K3 karplus ({strings}, {delay}, {total}): not bit-equal to the plain version "
-                                 f"(max err {err})")
-        worst = max(worst, err)
-        k = time_ms(kernel)
-        p = time_ms(plain, reps=2)
-        b, by = bound(strings * (delay + total) * 4, strings * total * 6.0)
-        periods = -(-total // delay) - 1
-        shape = {"shape": [strings, delay, total], "periods": periods, "ms": k, "plain_ms": p, "bound_ms": b,
-                 "bound_by": by, "library_ms": None, "us_per_period": k * 1e3 / max(periods, 1)}
-        shapes.append(shape if path is None else {**shape, "path": path})
-        log(f"K3 karplus ({strings} strings, L = {delay}, {total} samples, {periods} periods): bit-equal to the "
-            f"plain version; kernel {k:.3f} ms ({shape['us_per_period'] * 1e3:.1f} ns a period), plain {p:.3f} ms, "
-            f"bound {b * 1e3:.3f} us ({by})")
-    return worst, shapes
+            got, ref = kernel(), plain().contiguous()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"K3 karplus ({strings}, {delay}, {total}): not bit-equal to the plain version "
+                                     f"(max err {err})")
+            worst = max(worst, err)
+            k = time_ms(kernel, reps=9)
+            p = time_ms(plain, reps=1 if delay <= 2 else 2)  # 48,000-96,000 vector steps a call at L <= 2
+            b, by = bound(strings * (delay + total) * 4, strings * total * 6.0)
+            periods = -(-total // delay) - 1
+            shape = {"shape": [strings, delay, total], "periods": periods, "ms": k, "plain_ms": p, "bound_ms": b,
+                     "bound_by": by, "library_ms": None, "us_per_period": k * 1e3 / max(periods, 1)}
+            shapes.append(shape if path is None else {**shape, "path": path})
+    if not clocks:
+        raise AssertionError("nvidia-smi read no SM clock while K3 ran")
+    mhz = statistics.median(clocks)
+    for shape in shapes:
+        floor = shape["periods"] * KS_CHAIN_CYCLES / (mhz * 1e3)
+        shape.update(chain_floor_ms=floor, sm_clock_mhz=mhz, x_chain_floor=shape["ms"] / floor if floor else None)
+        strings, delay, total = shape["shape"]
+        log(f"K3 karplus ({strings} strings, L = {delay}, {total} samples, {shape['periods']} periods): bit-equal to "
+            f"the plain version; kernel {shape['ms']:.4f} ms ({shape['us_per_period'] * 1e3:.1f} ns a period), chain "
+            f"floor {floor:.4f} ms at {mhz:.0f} MHz (x{shape['ms'] / floor if floor else float('nan'):.2f}), plain "
+            f"{shape['plain_ms']:.3f} ms, bound {shape['bound_ms'] * 1e3:.3f} us ({shape['bound_by']})")
+    return worst, shapes, clocks
 
 
 def count_decodes(fn):
@@ -1672,63 +1746,135 @@ def pooled_image_check(torch, tap: Path, dev) -> dict:
     written = sum(im.size for im in images) * 2
     b, by = bound(read + written, 0.0)
     busy = device_busy(torch, lambda: display.pooled_log_freq_image(plane, *args))
+    col_pool = -(-int(frames.max()) // 1200) if int(frames.max()) > 1800 else 1
+    key = (4096, SR, i0, i1, 20.0, 20_000.0, 720)
+    nf = torch.from_numpy(frames).to(dev)
+
+    def wall_ms(fn) -> list:
+        walls = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    call_walls = wall_ms(lambda: display.pooled_log_freq_image(plane, *args))
+    wrapper_walls = wall_ms(lambda: display._pooled_image(plane, nf, key, col_pool))
     out = {"plane": list(plane.shape), "image": [list(im.shape) for im in images], "ms": ms, "bound_ms": b,
            "bound_by": by, "bound_share": b / ms, "peak_gib": peak, "p995_db": p995.tolist(), "p5_db": p5.tolist(),
-           "profiled": busy}
+           "profiled": busy, "call_wall_ms": call_walls, "wrapper_wall_ms": wrapper_walls,
+           "copy_and_host_ms": statistics.median(call_walls) - statistics.median(wrapper_walls)}
     log(f"pooled display image {tuple(plane.shape)} -> {[im.shape for im in images]}: {ms:.3f} ms, bound "
-        f"{b * 1e3:.1f} us ({by}), {b / ms:.2%} of bound; peak {peak:.3f} GiB; card == CPU")
+        f"{b * 1e3:.1f} us ({by}), {b / ms:.2%} of bound; peak {peak:.3f} GiB; card == CPU; host clock: the call "
+        f"{min(call_walls):.3f}-{max(call_walls):.3f} ms, its K4 wrapper {min(wrapper_walls):.3f}-"
+        f"{max(wrapper_walls):.3f} ms, the copy and the host's work {out['copy_and_host_ms']:.3f} ms")
     log(f"  under the profiler: {busy}")
     out["k4"] = pool_check(torch, display, plane, frames, dev)
     return out
+
+
+def pool_corner_planes(torch, plane, i0: int, i1: int) -> dict:
+    """The report's plane with channel 0's selected bins cornered for the
+    percentile selection, from seed 11: a floor (-120 dB exactly) in 60% of
+    the cells; every cell below -0.5 dB but 2% at +0 and -0 (the 99.5th
+    percentile on signed zeros); 1% each NaN, +inf and -inf."""
+    g = torch.Generator(device=plane.device).manual_seed(11)
+    region = (plane.shape[1], i1 - i0)
+
+    def cells(share):
+        return torch.rand(region, generator=g, device=plane.device) < share
+
+    floor = plane.clone()
+    floor[0, :, i0:i1] = torch.where(cells(0.6), torch.tensor(-120.0, device=plane.device), floor[0, :, i0:i1])
+    zeros = plane.clone()
+    sub = torch.clamp(zeros[0, :, i0:i1], max=-0.5)
+    zero, sign = cells(0.02), cells(0.5)
+    sub = torch.where(zero & sign, torch.tensor(0.0, device=plane.device), sub)
+    zeros[0, :, i0:i1] = torch.where(zero & ~sign, torch.tensor(-0.0, device=plane.device), sub)
+    odd = plane.clone()
+    pick = torch.rand(region, generator=g, device=plane.device)
+    sub = odd[0, :, i0:i1]
+    for k, value in enumerate((float("nan"), float("inf"), float("-inf"))):
+        sub = torch.where((pick >= 0.01 * k) & (pick < 0.01 * (k + 1)), torch.tensor(value, device=plane.device), sub)
+    odd[0, :, i0:i1] = sub
+    return {"a floor in 60% of the cells": floor, "+-0 at the 99.5th percentile": zeros, "NaN and +-inf cells": odd}
 
 
 def pool_check(torch, display, plane, frames, dev) -> dict:
     """K4 (ops.display._pooled_image on the card) against its plain
     version on the same card plane, int16 for int16: the report's call
     (the tap's valid frames, 720 rows, its column pooling), column pooling
-    1 and 3 with the two channels' valid counts apart, and a channel with
-    no valid frame. CUDA-event times of the wrapper (colour percentiles and
-    the launch), of the launch alone through the C entry, and of the plain
-    version; the bound is pooled_image_check's."""
+    1 and 3 with the two channels' valid counts apart, a channel with no
+    valid frame, and the report's call on pool_corner_planes. CUDA-event
+    times of the wrapper (a memset and three launches), of its C entry
+    alone, of the plain version (the pyramid and a sort), and of
+    torch.nanquantile per channel on the valid selected region for the two
+    percentiles alone (`library_ms`, finite planes); the device events of
+    one wrapper call under torch.profiler. The bound is
+    pooled_image_check's: the selected bins of the valid frames read once
+    and the int16 image written once."""
     from audio_analysis_tpu_torch import _build
 
     t = plane.shape[1]
     i0, i1 = display.freq_selection(4096, SR, 20.0, 20_000.0)
     key = (4096, SR, i0, i1, 20.0, 20_000.0, 720)
     report_pool = -(-int(frames.max()) // 1200) if int(frames.max()) > 1800 else 1
-    cases = [(tuple(int(v) for v in frames), report_pool, None), ((t, 900), 1, "split valid counts"),
-             ((t - 7, t // 3), 3, "split valid counts"), ((t, 0), 2, "a channel with no valid frame")]
+    report_valid = tuple(int(v) for v in frames)
+    cases = [(plane, report_valid, report_pool, None), (plane, (t, 900), 1, "split valid counts"),
+             (plane, (t - 7, t // 3), 3, "split valid counts"), (plane, (t, 0), 2, "a channel with no valid frame")]
+    cases += [(p, report_valid, report_pool, label) for label, p in pool_corner_planes(torch, plane, i0, i1).items()]
     lib, worst, shapes = _build.library(), 0, []
-    for valid, col_pool, path in cases:
+    qs = torch.tensor([0.995, 0.05], dtype=torch.float32, device=dev)
+    for x, valid, col_pool, path in cases:
         nf = torch.tensor(valid, dtype=torch.int64, device=dev)
-        got = display._pooled_image(plane, nf, key, col_pool)
-        ref = display._pooled_image_plain(plane, nf, key, col_pool)
+        got = display._pooled_image(x, nf, key, col_pool)
+        ref = display._pooled_image_plain(x, nf, key, col_pool)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.equal(got, ref):
-            raise AssertionError(f"K4 pool {valid} col_pool {col_pool}: not equal to the plain version")
+            raise AssertionError(f"K4 pool {valid} col_pool {col_pool} ({path}): not equal to the plain version "
+                                 f"(percentiles {got[:, :2, -1].tolist()} against {ref[:, :2, -1].tolist()})")
         worst = max(worst, int((got.int() - ref.int()).abs().max()))
         spans = display._row_spans_on(key, dev)
-        pcts = display._colour_percentiles(plane, display._valid_frames(plane, nf), i0, i1).contiguous()
+        scratch = torch.empty(lib.aa_pool_scratch_bytes(x.shape[0]), dtype=torch.uint8, device=dev)
         out = torch.empty_like(got)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def launch_alone():
-            _build.check(lib.aa_pool_image(plane.data_ptr(), nf.data_ptr(), spans.data_ptr(), pcts.data_ptr(),
-                                           out.data_ptr(), plane.shape[0], t, plane.shape[2], i0, 720, col_pool,
+            _build.check(lib.aa_pool_image(x.data_ptr(), nf.data_ptr(), spans.data_ptr(), scratch.data_ptr(),
+                                           out.data_ptr(), x.shape[0], t, x.shape[2], i0, i1 - i0, 720, col_pool,
                                            stream), "pool kernel")
 
-        k = time_ms(lambda: display._pooled_image(plane, nf, key, col_pool))
-        alone = time_ms(launch_alone)
+        k = time_ms(lambda: display._pooled_image(x, nf, key, col_pool), reps=15)
+        alone = time_ms(launch_alone, reps=15)
         if not torch.equal(out, got):
             raise AssertionError(f"K4 pool {valid}: the C entry alone and the wrapper differ")
-        p = time_ms(lambda: display._pooled_image_plain(plane, nf, key, col_pool))
+        p = time_ms(lambda: display._pooled_image_plain(x, nf, key, col_pool))
+        library = None
+        if bool(torch.isfinite(x).all()):
+            regions = [x[c, :v, i0:i1].reshape(-1) for c, v in enumerate(valid) if v > 0]
+
+            def percentiles_alone():
+                return [torch.nanquantile(r, qs) for r in regions]
+
+            library = time_ms(percentiles_alone)
+        events = device_busy(torch, lambda: display._pooled_image(x, nf, key, col_pool))
         read = sum(min(v, t) for v in valid) * (i1 - i0) * 4
         b, by = bound(read + got.numel() * 2, 0.0)
-        shape = {"shape": [*plane.shape, 720], "valid": list(valid), "col_pool": col_pool, "ms": k,
-                 "launch_alone_ms": alone, "plain_ms": p, "bound_ms": b, "bound_by": by, "library_ms": None}
+        shape = {"shape": [*x.shape, 720], "valid": list(valid), "col_pool": col_pool, "ms": k,
+                 "launch_alone_ms": alone, "plain_ms": p, "bound_ms": b, "bound_by": by, "library_ms": library,
+                 "device_events_per_call": events["device_events"], "device_busy_ms": events["device_busy_ms"],
+                 "host_launch_calls_per_call": events["host_calls"]["cudaLaunchKernel"]
+                 + events["host_calls"]["cudaMemsetAsync"],
+                 "percentiles_i16": got[:, :2, -1].tolist()}
         shapes.append(shape if path is None else {**shape, "path": path})
-        log(f"K4 pool {tuple(plane.shape)} valid {valid} col_pool {col_pool}: equal to the plain version; wrapper "
-            f"{k:.3f} ms (the launch alone {alone:.4f} ms), plain {p:.3f} ms, bound {b * 1e3:.1f} us ({by})")
+        log(f"K4 pool {tuple(x.shape)} valid {valid} col_pool {col_pool}{'' if path is None else ' (' + path + ')'}: "
+            f"equal to the plain version; wrapper {k:.4f} ms (its C entry alone {alone:.4f} ms; under the profiler "
+            f"{shape['host_launch_calls_per_call']} launch and memset calls, {events['device_events']} device events, "
+            f"{events['device_busy_ms']:.4f} ms busy), plain {p:.3f} ms, "
+            f"percentiles alone by torch.nanquantile {'-' if library is None else f'{library:.3f} ms'}, "
+            f"bound {b * 1e3:.1f} us ({by})")
     return {"max_abs_err": float(worst), "shapes": shapes}
 
 
@@ -2919,10 +3065,10 @@ def main(argv=None) -> int:
     phases["ptxas"] = ptxas_report(lib_path.with_suffix(".log").read_text())
     for name, info in phases["ptxas"].items():
         log(f"ptxas {name}: {info}")
-    for kernel in ("edc_kernel", "karplus_warp_kernel", "karplus_block_kernel", "pool_kernel"):
-        info = phases["ptxas"].get(kernel)
-        if not info or info.get("spill_store_bytes") or info.get("spill_load_bytes"):
-            raise AssertionError(f"{kernel} missing from ptxas' report or spilling: {info}")
+    missing = [kernel for kernel in PTXAS_KERNELS if kernel not in phases["ptxas"]]
+    spilling = {k: v for k, v in phases["ptxas"].items() if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+    if missing or spilling:
+        raise AssertionError(f"ptxas' report: missing {missing}, spilling {spilling}")
 
     # 2. kernels vs plain versions on the card
     if not args.fuzz_only:

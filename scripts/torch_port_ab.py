@@ -17,13 +17,15 @@ Per process, host clock around work that ends in a synchronize:
   gen_karplus_4k: `gen karplus_pluck --freq 4000` through the gen CLI entry
       on the card, one cold run and `--reps` warm ones (s);
   pooling: ops.display.pooled_log_freq_image on the tap's 4096-point dB
-      STFT plane (the report's call), `--reps` calls after one (ms), and
-      the parts every tree shares after the device work: the int16 image's
-      copy to the host and its dequantisation and per-channel transpose on
-      the host (ms);
+      STFT plane (the report's call), `--reps` calls after one (ms); its
+      device part, the tree's K4 wrapper `ops.display._pooled_image` on the
+      same plane (ms), and its device time by kernel under torch.profiler
+      (us a call); and the rest of the call, the int16 image's copy to the
+      host and the host's work on it, as the call's median less the
+      wrapper's (ms);
   report: run_report_from_wav_file on the tap with its render jobs recorded
       (not drawn, as on a host without matplotlib), one cold and `--reps`
-      warm runs (s).
+      warm runs (s), and the cold run's time by block (its timing footer).
 Prints the card's name and power limit first and one JSON line last. Needs
 CUDA; no result without it.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +58,26 @@ def write_tap(path: Path) -> None:
     x = 0.3 * rng.standard_normal((N, 2)) * (10.0 ** (-3.0 * t / 1.2))[:, None]
     x[480] = 0.9
     wavfile.write(path, SR, (np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16))
+
+
+def device_us_by_name(torch, fn, reps: int) -> dict:
+    """Device microseconds a call of fn spends in each kernel or copy, by
+    name (the first 48 characters), from torch.profiler over `reps` calls;
+    "busy" is their sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            name = e.name[:48]
+            by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start) / reps
+    return {"busy": sum(by_name.values()), **by_name}
 
 
 def worker(tap: Path, out_dir: Path, reps: int) -> dict:
@@ -91,21 +114,24 @@ def worker(tap: Path, out_dir: Path, reps: int) -> dict:
     args = (frames, 4096, SR, 20.0, 20_000.0)
     display.pooled_log_freq_image(plane, *args)
     result["pooling_call_ms"] = [1e3 * wall(lambda: display.pooled_log_freq_image(plane, *args)) for _ in range(reps)]
-    cols = -(-int(frames.max()) // 1200) if int(frames.max()) > 1800 else 1
-    q = torch.zeros((plane.shape[0], -(-plane.shape[1] // cols) + 1, 720), dtype=torch.int16, device=dev)
-    result["pooling_d2h_ms"] = [1e3 * wall(lambda: q.cpu()) for _ in range(reps)]
-    host = q.cpu().numpy()
+    col_pool = -(-int(frames.max()) // 1200) if int(frames.max()) > 1800 else 1
+    i0, i1 = display.freq_selection(4096, SR, 20.0, 20_000.0)
+    key = (4096, SR, i0, i1, 20.0, 20_000.0, 720)
+    nf = torch.from_numpy(frames).to(dev)
+    result["pooling_wrapper_ms"] = [1e3 * wall(lambda: display._pooled_image(plane, nf, key, col_pool))
+                                    for _ in range(reps)]
+    result["pooling_copy_and_host_ms"] = (statistics.median(result["pooling_call_ms"])
+                                          - statistics.median(result["pooling_wrapper_ms"]))
+    result["pooling_wrapper_device_us"] = device_us_by_name(
+        torch, lambda: display._pooled_image(plane, nf, key, col_pool), reps)
 
-    def dequantize_and_transpose():
-        image = display.dequantize_db_i16(host)
-        return [image[c, :-1].T.copy() for c in range(image.shape[0])]
+    def report(settings=ReportSettings()):
+        return run_report_from_wav_file(tap, out_dir / "report" / "tap", settings, RecordingPlotWorker(), dev)
 
-    result["pooling_host_dequantize_transpose_ms"] = [1e3 * wall(dequantize_and_transpose) for _ in range(reps)]
-
-    def report():
-        run_report_from_wav_file(tap, out_dir / "report" / "tap", ReportSettings(), RecordingPlotWorker(), dev)
-
-    result["report_cold_s"] = wall(report)
+    cold = []
+    result["report_cold_s"] = wall(lambda: cold.append(report(ReportSettings(include_timing_footer=True))))
+    footer = Path(cold[0].summary_markdown_path).read_text()
+    result["report_cold_blocks_s"] = {k: float(v) for k, v in re.findall(r"\|\s*([a-z_]+)\s*\|\s*([0-9.]+)", footer)}
     result["report_warm_s"] = [wall(report) for _ in range(reps)]
     return result
 
@@ -153,9 +179,14 @@ def main() -> int:
                   f"{max(one['report_warm_s']):.4f} s", flush=True)
     summary = {}
     for label, rs in runs.items():
+        # one entry per measurement; each part of a dict (a block of the
+        # cold report, a kernel of the wrapper) is one too
+        flat = [{**{k: v for k, v in r.items() if not isinstance(v, dict)},
+                 **{f"{k}[{part}]": v for k, d in r.items() if isinstance(d, dict) for part, v in d.items()}}
+                for r in rs]
         summary[label] = {}
-        for key in rs[0]:
-            values = [v for r in rs for v in (r[key] if isinstance(r[key], list) else [r[key]])]
+        for key in dict.fromkeys(k for r in flat for k in r):
+            values = [v for r in flat if key in r for v in (r[key] if isinstance(r[key], list) else [r[key]])]
             summary[label][key] = {"median": statistics.median(values), "min": min(values), "max": max(values)}
     print(json.dumps({"card": card, "runs": runs, "summary": summary}))
     return 0

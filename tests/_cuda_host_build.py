@@ -3,11 +3,12 @@
 g++ compiles the .cu file as C++ against tests/cuda_host/cuda_runtime.h, the
 stand-in for the CUDA subset the kernels use (each CUDA thread of a block a
 std::thread, __syncthreads a barrier, a warp shuffle an exchange between
-per-warp barriers, blocks one after another). The one spot rewritten
-textually is each `kernel<<<grid, threads, smem, stream>>>(` launch, which
-becomes `host_launch(kernel, grid, threads, smem, `. The C entries are then
-called through ctypes on host memory, exactly as the wrappers call them on
-the card.
+per-warp barriers, blocks one after another). Two spots are rewritten
+textually: each `kernel<<<grid, threads, smem, stream>>>(` launch, which
+becomes `host_launch(kernel, grid, threads, smem, `, and each
+`extern __shared__ T name[];` declaration, which becomes a pointer into the
+launch's shared buffer. The C entries are then called through ctypes on
+host memory, exactly as the wrappers call them on the card.
 """
 
 import ctypes
@@ -23,6 +24,7 @@ CSRC = REPO / "audio_analysis_tpu_torch" / "csrc"
 HOST_INCLUDE = Path(__file__).resolve().parent / "cuda_host"
 
 _LAUNCH = re.compile(r"(\w+)<<<([^,<>]+), ([^,<>]+), ([^,<>]+), (\w+)>>>\(")
+_EXTERN_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 
 def build_host_library(name: str, launches: int, out_dir: Path) -> ctypes.CDLL:
@@ -33,6 +35,7 @@ def build_host_library(name: str, launches: int, out_dir: Path) -> ctypes.CDLL:
         pytest.skip("needs g++ to compile the kernel source for the host")
     src, found = _LAUNCH.subn(r"host_launch(\1, \2, \3, \4, ", (CSRC / f"{name}.cu").read_text())
     assert found == launches, f"kernel source changed shape: {found} launches, expected {launches}"
+    src = _EXTERN_SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(host_shared_memory.data());", src)
     cpp, so = out_dir / f"{name}_host.cpp", out_dir / f"lib{name}_host.so"
     cpp.write_text(src)
     proc = subprocess.run(

@@ -2,9 +2,12 @@
 // (stft.cu, edc.cu, karplus.cu, pool.cu), so they compile with g++ and run
 // on the CPU (tests/test_torch_stft_host.py, tests/test_torch_edc_host.py,
 // tests/test_torch_karplus_host.py, tests/test_torch_pool_host.py): every CUDA
-// thread of a block is a std::thread, __syncthreads is a std::barrier over
-// the block, a warp shuffle is an exchange through a per-warp slot array
-// between two per-warp barriers, blocks run one after another (in reverse
+// thread of a block is a std::thread, __syncthreads (and a named barrier,
+// which the sources reach through __syncthreads when __CUDA_ARCH__ is not
+// defined) is a std::barrier over the block, a warp shuffle or vote is an
+// exchange through a per-warp slot array between two per-warp barriers,
+// atomics are the compiler's sequentially consistent builtins and
+// __threadfence a full fence, blocks run one after another (in reverse
 // order when host_reverse_blocks is set), `extern __shared__` memory is one
 // buffer per launch and a `__shared__` variable is a function-level static.
 // A spin-wait that is never satisfied (__nanosleep called for more than
@@ -12,6 +15,7 @@
 // a value that is never published fails within a bounded time.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <chrono>
 #include <cmath>
@@ -42,6 +46,7 @@ inline float __log2f(float a) { return std::log2(a); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
 inline unsigned __float_as_uint(float a) {
   unsigned u;
   std::memcpy(&u, &a, 4);
@@ -57,7 +62,7 @@ struct host_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 inline thread_local host_dim3 threadIdx, blockIdx;
-inline host_dim3 blockDim;
+inline host_dim3 blockDim, gridDim;
 inline std::barrier<>* host_block_barrier = nullptr;
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 
@@ -79,7 +84,9 @@ inline void __stcs(T* p, T v) {
   *p = v;
 }
 
+// global and shared atomics alike (shared memory is host memory here)
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 constexpr auto kHostWaitLimit = std::chrono::seconds(2);
 inline void __nanosleep(unsigned ns) {
@@ -95,6 +102,7 @@ inline void __nanosleep(unsigned ns) {
 // warps: a slot per lane and a barrier per warp of the running block
 struct host_warp {
   std::unique_ptr<std::barrier<>> barrier;
+  unsigned lanes = 32;
   uint64_t slot[32];
 };
 inline std::vector<host_warp> host_warps;
@@ -111,6 +119,25 @@ inline T host_shfl(T v, unsigned src_lane) {
   w.barrier->arrive_and_wait();
   return r;
 }
+// votes: the lanes' predicates as a bit mask (lanes of a partial last
+// warp that do not exist vote 0)
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned lane = threadIdx.x % 32;
+  host_warp& w = host_warps[threadIdx.x / 32];
+  w.slot[lane] = pred != 0;
+  w.barrier->arrive_and_wait();
+  unsigned bits = 0;
+  for (unsigned i = 0; i < w.lanes; ++i) bits |= w.slot[i] ? 1u << i : 0u;
+  w.barrier->arrive_and_wait();
+  return bits;
+}
+inline int __all_sync(unsigned mask, int pred) {
+  const host_warp& w = host_warps[threadIdx.x / 32];
+  const unsigned live = mask & (w.lanes == 32 ? 0xffffffffu : (1u << w.lanes) - 1u);
+  return (__ballot_sync(mask, pred) & live) == live;
+}
+inline int __any_sync(unsigned mask, int pred) { return (__ballot_sync(mask, pred) & mask) != 0; }
+
 template <class T>
 inline T __shfl_down_sync(unsigned, T v, unsigned delta) {
   const unsigned lane = threadIdx.x % 32;
@@ -175,14 +202,18 @@ void host_launch(Kernel kernel, unsigned blocks, int threads, size_t smem, Args.
   host_shared_memory.assign(smem, 0xff);
   blockDim.x = static_cast<unsigned>(threads);
   blockDim.y = blockDim.z = 1;
+  gridDim.x = blocks;
+  gridDim.y = gridDim.z = 1;
   for (unsigned i = 0; i < blocks; ++i) {
     const unsigned b = host_reverse_blocks ? blocks - 1 - i : i;
     std::barrier<> barrier(threads);
     host_block_barrier = &barrier;
     host_warps.clear();
     host_warps.resize((threads + 31) / 32);
-    for (int w = 0; w < (threads + 31) / 32; ++w)
-      host_warps[w].barrier = std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w));
+    for (int w = 0; w < (threads + 31) / 32; ++w) {
+      host_warps[w].lanes = static_cast<unsigned>(std::min(32, threads - 32 * w));
+      host_warps[w].barrier = std::make_unique<std::barrier<>>(host_warps[w].lanes);
+    }
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([=] {

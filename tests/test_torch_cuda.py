@@ -354,7 +354,8 @@ def test_karplus_strong_on_card_equals_cpu(dev, freq):
 
 
 @pytest.mark.parametrize("strings", [1, 8])
-@pytest.mark.parametrize("delay", [1, 2, 12, 31, 32, 33, 436, 2400])
+@pytest.mark.parametrize("delay", [1, 2, 12, 31, 32, 33, 436, 2400, 3, 4, 7, 64, 65, 129, 257, 513, 1024, 1025, 8192,
+                                   8193])
 def test_karplus_kernel_bit_equal_to_plain_on_card(dev, delay, strings):
     """K3 (one launch) against its plain version on the card and on the
     CPU: half a second of audio and a part period, bit for bit."""
@@ -408,8 +409,9 @@ def test_pooled_image_on_card_equals_cpu(dev, valid):
 @pytest.mark.parametrize("valid,col_pool", [((2041, 2041), 2), ((2041, 900), 1), ((301, 0), 3)],
                          ids=["report_shape", "col_pool_1", "valid_zero"])
 def test_pool_kernel_equal_to_plain_on_card(dev, valid, col_pool):
-    """K4 (one launch) against its plain version on the same card plane:
-    the int16 image and its percentile column equal."""
+    """K4 (one count of its wrapper: a memset and three launches) against
+    its plain version on the same card plane: the int16 image and its
+    percentile column equal."""
     rng = np.random.default_rng(7)
     plane = torch.from_numpy(rng.uniform(-120.0, 0.0, (2, 2041, 2049)).astype(np.float32)).to(dev)
     nf = torch.tensor(valid, dtype=torch.int64, device=dev)
@@ -419,6 +421,37 @@ def test_pool_kernel_equal_to_plain_on_card(dev, valid, col_pool):
     got = display._pooled_image(plane, nf, key, col_pool)
     assert display.POOL_KERNEL.launches == before + 1
     assert torch.equal(got, display._pooled_image_plain(plane, nf, key, col_pool))
+
+
+@pytest.mark.parametrize("kind", ["floor_60_percent", "signed_zeros_at_p995", "non_finite", "one_value"])
+def test_pool_kernel_percentile_corners_on_card(dev, kind):
+    """K4 against its plain version (the pyramid and a sort) on report-size
+    planes whose channel 0 corners the radix selection: a -120 dB floor in
+    60% of the cells, +-0 at the 99.5th percentile, NaN and +-inf cells,
+    one value everywhere; the int16 image and percentiles equal."""
+    rng = np.random.default_rng(11)
+    plane = rng.uniform(-120.0, 0.0, (2, 2041, 2049)).astype(np.float32)
+    region = plane[0]
+    if kind == "floor_60_percent":
+        region[rng.random(region.shape) < 0.6] = -120.0
+    elif kind == "signed_zeros_at_p995":
+        np.minimum(region, -0.5, out=region)
+        cells = rng.random(region.shape)
+        region[cells < 0.01] = 0.0
+        region[(cells >= 0.01) & (cells < 0.02)] = -0.0
+    elif kind == "non_finite":
+        cells = rng.random(region.shape)
+        region[cells < 0.01] = np.nan
+        region[(cells >= 0.01) & (cells < 0.02)] = np.inf
+        region[(cells >= 0.02) & (cells < 0.03)] = -np.inf
+    else:
+        region[:] = -120.0
+    plane = torch.from_numpy(plane).to(dev)
+    nf = torch.tensor((2041, 1500), dtype=torch.int64, device=dev)
+    i0, i1 = display.freq_selection(4096, 48_000, 20.0, 20_000.0)
+    key = (4096, 48_000, i0, i1, 20.0, 20_000.0, 720)
+    got = display._pooled_image(plane, nf, key, 2)
+    assert torch.equal(got, display._pooled_image_plain(plane, nf, key, 2))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

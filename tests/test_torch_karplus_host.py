@@ -2,13 +2,16 @@
 karplus.cu, K3) run on the CPU against its plain torch version.
 
 The source is compiled with g++ against tests/cuda_host/cuda_runtime.h
-(tests/_cuda_host_build.py), so both of its paths run here as written: the
-one-warp path (L <= 32: the period in registers, neighbours by
-__shfl_up_sync, lane 0's by __shfl_sync from two periods back) and the
-block path (L > 32: the output as the ring, a barrier a period). What this
-cannot show (g++, not nvcc: whether nvcc contracts an operation into a
-fused multiply-add; no timing) is left to tests/test_torch_cuda.py and
-chip_smoke.py on the card.
+(tests/_cuda_host_build.py), so its four paths run here as written: one
+thread a string (L <= 3: the period in registers), one warp (L <= 32: 3
+periods a round from 3 shuffled neighbours), the register path (32 < L <=
+8192: one warp of V = 2 or 4 registers a lane up to 128, then up to 32
+warps of V = 2, 4 or 8 whose edges cross through shared memory and a
+barrier a period) and the ring (L > 8192: the output read back from
+memory, a barrier a period). What this cannot show (g++,
+not nvcc: whether nvcc contracts an operation into a fused multiply-add;
+no timing) is left to tests/test_torch_cuda.py and chip_smoke.py on the
+card.
 
 Tolerance: none. The kernel rounds every operation in the plain version's
 order, so the samples must be bit-equal (compared as int32 bit patterns).
@@ -28,7 +31,7 @@ G, BLEND = 0.996, 0.5
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    lib = build_host_library("karplus", 2, tmp_path_factory.mktemp("karplus_host"))
+    lib = build_host_library("karplus", 4, tmp_path_factory.mktemp("karplus_host"))
     p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
     lib.aa_karplus.argtypes = [p, p, i64, i64, i64, f32, f32, p]
     lib.aa_karplus.restype = ctypes.c_int
@@ -57,10 +60,14 @@ def _assert_bit_equal_to_plain(lib, init, total, g=G, b=BLEND):
     return got
 
 
-# every delay length of the kernel's two paths near their edges (the
-# warp's 32 lanes, one lane past it) and two of the gen CLI's (12 at 4 kHz,
-# 436 at 110 Hz); six periods and a part of a seventh
-@pytest.mark.parametrize("delay", [2, 3, 12, 31, 32, 33, 64, 436])
+# every delay length of the kernel's paths near their edges: the one-thread
+# path (2, 3; L = 1 below), the warp path's rounds of 3 periods (4-7, 12,
+# 31, 32), the register path's one warp of V = 2 and 4 registers a lane
+# (33-64, 65-128) and its 2-32 warps of V = 2, 4 and 8 (129-2048,
+# 2049-4096, 4097-8192), the ring past it (8193), and the gen CLI's 4 kHz
+# (12), 110 Hz (436) and 20 Hz (2400); six periods and a part of a seventh
+@pytest.mark.parametrize("delay", [2, 3, 12, 31, 32, 33, 64, 436, 4, 5, 6, 7, 65, 128, 129, 2400, 4096, 4097,
+                                   8192, 8193, 256, 257, 512, 513, 1024, 1025, 2048, 2049])
 def test_kernel_source_bit_equal_to_plain(lib, delay):
     total = 6 * delay + max(1, delay // 3)
     assert total % delay != 0
@@ -74,7 +81,7 @@ def test_total_no_longer_than_the_line_is_the_line(lib, delay, total):
     assert torch.equal(got, init[:, :total])
 
 
-@pytest.mark.parametrize("delay", [12, 64])
+@pytest.mark.parametrize("delay", [12, 64, 300])
 def test_total_a_multiple_of_the_delay(lib, delay):
     _assert_bit_equal_to_plain(lib, _lines(2, delay, 3), 9 * delay)
 
@@ -89,6 +96,23 @@ def test_one_string(lib, delay):
 def test_blend_at_its_ends(lib, delay, blend):
     """b = 0: a pure delay with decay; b = 1: the two-point average alone."""
     _assert_bit_equal_to_plain(lib, _lines(3, delay, delay + 1), 5 * delay + 7, b=blend)
+
+
+@pytest.mark.parametrize("periods", [2, 7, 8, 12, 13])
+@pytest.mark.parametrize("part", [0, 1, 11])
+def test_a_round_that_ends_past_total(lib, periods, part):
+    """L = 12 (rounds of 6 periods after the first period alone): totals
+    whose last round stops after 1-6 of its periods, at a period's edge
+    and inside one; every sample past total stays unwritten (the output
+    is exactly total long)."""
+    _assert_bit_equal_to_plain(lib, _lines(2, 12, periods + part), 12 * periods + part)
+
+
+@pytest.mark.parametrize("delay", [2, 5])
+def test_short_lines_over_many_rounds(lib, delay):
+    """L = 2 and 5 (rounds of 2 and 4 periods), 300 periods: the halo's
+    lanes wrap into the period before in every round."""
+    _assert_bit_equal_to_plain(lib, _lines(3, delay, delay * 7), 300 * delay + 1)
 
 
 def test_a_delay_of_one_sample(lib):
