@@ -51,6 +51,8 @@ _SIGNATURES = {
     "aa_karplus": [_P, _P, _I64, _I64, _I64, _F32, _F32, _P],
     # x, num_frames, spans, scratch, out, channels, frames, bins, i0, n_sel, rows, col_pool, stream
     "aa_pool_image": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _P],
+    # block, stream
+    "aa_mark": [_I32, _P],
 }
 
 _lock = threading.Lock()

@@ -18,12 +18,17 @@ each chunk comes back in one packed device-to-host copy. On a mesh
 device `analyze_batch_flat`, the step every chunk runs, replays one CUDA
 graph per chunk shape and config (engine.graphs) once replays of it are in
 sight, as the JAX engine's step is one jit-compiled program.
+
+On the card `analyze_batch` launches an empty marker kernel at the top of
+the step and at the start of each block it runs (ops.marker), and one at
+its end, so a device trace splits the step's time by block; the step's
+CUDA graph captures them. The host pipeline's stretches are named spans
+(utils.timing.span; the list is in that module's docstring).
 """
 
 from __future__ import annotations
 
 import math
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
@@ -38,6 +43,7 @@ from audio_analysis_tpu_torch.ops import (
     edc,
     fftmask,
     logfreq,
+    marker,
     selectq,
     stft,
     trim,
@@ -49,6 +55,7 @@ from audio_analysis_tpu_torch.ops.common import (
     nanmedian,
     unwrap,
 )
+from audio_analysis_tpu_torch.utils.timing import span
 
 _NP_DTYPES = {torch.bool: np.bool_, torch.int32: np.int32, torch.float32: np.float32}
 # a frame block's plane per tap group (frame_tap_groups): at the report
@@ -264,6 +271,13 @@ def analyze_batch(
 ) -> Dict[str, torch.Tensor]:
     """The full fused metric computation. Returns a dict of (B, C, ...) tensors."""
     sr = config.sample_rate_hz
+    n = samples.shape[-1]
+    if config.run_stft:
+        _require_frames(n, config.n_fft, config.hop_length, "n_fft")
+    if config.run_modal:
+        _require_frames(n, config.modal_n_fft, config.hop_length, "modal_n_fft")
+    device = samples.device
+    marker.mark("align_decay", device)
     if samples.dtype == torch.int16:
         # PCM16 arrives raw and converts on the device: the upload moves
         # half the bytes of float32
@@ -271,11 +285,6 @@ def analyze_batch(
     if config.downmix_to_mono and samples.shape[1] > 1:
         samples = samples.mean(dim=1, keepdim=True)
     b, c, n = samples.shape
-    if config.run_stft:
-        _require_frames(n, config.n_fft, config.hop_length, "n_fft")
-    if config.run_modal:
-        _require_frames(n, config.modal_n_fft, config.hop_length, "modal_n_fft")
-    device = samples.device
     lengths = lengths.to(torch.int32)
     lengths_bc = lengths[:, None].expand(b, c)
     tables = _device_tables(config, n, device)
@@ -315,6 +324,7 @@ def analyze_batch(
 
     # ---- rt60 bands: the filter sees the full signal, then trims ----
     if config.run_bands:
+        marker.mark("bands", device)
         if tables["num_bands"] > 3:
             # octave/third-octave: the (C, bands, N) filterbank plane is the
             # memory high-water mark, so taps go one at a time
@@ -330,6 +340,7 @@ def analyze_batch(
     freqs, sel = tables["freqs"], tables["sel"]
     floor_lin = 10.0 ** (config.magnitude_floor_db / 20.0)
     if config.run_fr or config.run_group_delay:
+        marker.mark("fr_gd", device)
         windowed = aligned.samples * hann_window_dynamic(n, aligned.length)
         spectrum = torch.fft.rfft(windowed, dim=-1)
         del windowed
@@ -355,6 +366,7 @@ def analyze_batch(
 
     # ---- shared STFT: only the per-row max and the frame count are used ----
     if config.run_stft:
+        marker.mark("stft", device)
         num_frames, global_max_lin = [], []
         for lo, hi in frame_tap_groups(b, c, n, config.n_fft, config.hop_length):
             st = stft.stft_magnitude(
@@ -369,6 +381,7 @@ def analyze_batch(
 
     # ---- modal cloud ----
     if config.run_modal:
+        marker.mark("modal", device)
         groups = [
             _modal_fits(aligned.samples[lo:hi], aligned.length[lo:hi], tables, config)
             for lo, hi in frame_tap_groups(b, c, n, config.modal_n_fft, config.hop_length)
@@ -385,6 +398,7 @@ def analyze_batch(
 
     # ---- diffusion (report defaults) ----
     if config.run_diffusion:
+        marker.mark("diffusion", device)
         win = max(16, int(round(config.diffusion_window_seconds * sr)))
         hop = max(1, int(round(config.diffusion_hop_seconds * sr)))
         max_lag = max(1, int(round(config.diffusion_max_lag_ms / 1000.0 * sr)))
@@ -413,6 +427,7 @@ def analyze_batch(
             out["diff_median_corr0"] = nanmedian(stereo.corr0)
             out["diff_median_iacc"] = nanmedian(stereo.iacc_max)
 
+    marker.mark("end", device)
     return out
 
 
@@ -464,7 +479,8 @@ def fetch_packed(flats, spec) -> "list[Dict[str, np.ndarray]]":
     (concatenated on the device), then unpack each against `spec`."""
     packed = (torch.cat(flats) if len(flats) > 1 else flats[0]).cpu().numpy()
     per = int(flats[0].shape[0])
-    return [unpack_flat(packed[i * per : (i + 1) * per], spec) for i in range(len(flats))]
+    with span("aa.pipeline.unpack"):
+        return [unpack_flat(packed[i * per : (i + 1) * per], spec) for i in range(len(flats))]
 
 
 def _pad_fill_length(n_max: int) -> int:
@@ -556,73 +572,75 @@ def analyze_bundle_pipelined(
             audio_blocks = [(block, None, None) for block in hit]
         return length_blocks, audio_blocks
 
-    decode_wait_s = dispatch_s = 0.0
+    # unrounded seconds of the phases below, rounded into `timings` at the end
+    acc = {"decode_wait_s": 0.0, "h2d_dispatch_s": 0.0, "fetch_s": 0.0, "chunk_callback_s": 0.0}
     flats = []
     takes = []
     spec = None
     prefetch = max(1, int(prefetch_chunks))
     starts = list(range(0, b, chunk))
     with ThreadPoolExecutor(max_workers=prefetch) as ex:
-        futs = {
-            i: ex.submit(load_chunk, starts[i], min(b, starts[i] + chunk))
-            for i in range(min(prefetch, len(starts)))
-        }
+        # a submit starts a worker thread or hands it the chunk, and waits
+        # for the interpreter lock the workers hold while they start
+        with span("aa.pipeline.prefetch"):
+            futs = {
+                i: ex.submit(load_chunk, starts[i], min(b, starts[i] + chunk))
+                for i in range(min(prefetch, len(starts)))
+            }
         for i, lo in enumerate(starts):
             hi = min(b, lo + chunk)
-            t0 = time.perf_counter()
-            length_blocks, audio_blocks = futs.pop(i).result()
-            decode_wait_s += time.perf_counter() - t0
+            with span("aa.pipeline.decode_wait", acc, "decode_wait_s"):
+                length_blocks, audio_blocks = futs.pop(i).result()
             nxt = i + prefetch
             if nxt < len(starts):
-                futs[nxt] = ex.submit(load_chunk, starts[nxt], min(b, starts[nxt] + chunk))
-            t0 = time.perf_counter()
-            for blocks in (length_blocks, audio_blocks):
-                for dev, (block, event, _pinned) in zip(shards, blocks):
-                    if event is not None:
-                        compute = torch.cuda.current_stream(dev)
-                        compute.wait_event(event)
-                        block.record_stream(compute)
-            flat, spec = analyze_batch_sharded_flat(
-                shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config,
-                chunks_ahead=len(starts) - 1 - i,
-            )
-            flats.append(flat)
-            dispatch_s += time.perf_counter() - t0
+                with span("aa.pipeline.prefetch"):
+                    futs[nxt] = ex.submit(load_chunk, starts[nxt], min(b, starts[nxt] + chunk))
+            with span("aa.pipeline.dispatch", acc, "h2d_dispatch_s"):
+                for blocks in (length_blocks, audio_blocks):
+                    for dev, (block, event, _pinned) in zip(shards, blocks):
+                        if event is not None:
+                            compute = torch.cuda.current_stream(dev)
+                            compute.wait_event(event)
+                            block.record_stream(compute)
+                flat, spec = analyze_batch_sharded_flat(
+                    shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config,
+                    chunks_ahead=len(starts) - 1 - i,
+                )
+                flats.append(flat)
             takes.append(hi - lo)
+        with span("aa.pipeline.gather"):
+            ex.shutdown()  # every future is done; the block's exit finds it shut
 
     chunks = []
-    callback_s = 0.0
     if on_chunk_result is None:
-        t0 = time.perf_counter()
-        fetched = fetch_packed(flats, spec)
-        fetch_s = time.perf_counter() - t0
+        with span("aa.pipeline.fetch", acc, "fetch_s"):
+            fetched = fetch_packed(flats, spec)
         for res, take in zip(fetched, takes):
             if take < chunk:
                 res = {k: v[:take] for k, v in res.items()}
             chunks.append(res)
     else:
-        fetch_s = 0.0
         for k_idx, (flat, take) in enumerate(zip(flats, takes)):
-            t0 = time.perf_counter()
-            res = unpack_flat(flat.cpu().numpy(), spec)
-            fetch_s += time.perf_counter() - t0
+            with span("aa.pipeline.fetch", acc, "fetch_s"):
+                host = flat.cpu().numpy()
+                with span("aa.pipeline.unpack"):
+                    res = unpack_flat(host, spec)
             if take < chunk:
                 res = {k: v[:take] for k, v in res.items()}
             lo = k_idx * chunk
-            t0 = time.perf_counter()
-            on_chunk_result(lo, lo + take, res)
-            callback_s += time.perf_counter() - t0
+            with span("aa.pipeline.callback", acc, "chunk_callback_s"):
+                on_chunk_result(lo, lo + take, res)
             chunks.append(res)
     if timings is not None:
         # decode_wait = time blocked on the worker's decode + upload;
         # dispatch = enqueueing the chunk's device work; fetch = the packed
         # device->host copies (including waiting out device compute)
-        timings["decode_wait_s"] = round(decode_wait_s, 4)
-        timings["h2d_dispatch_s"] = round(dispatch_s, 4)
-        timings["fetch_s"] = round(fetch_s, 4)
+        for key in ("decode_wait_s", "h2d_dispatch_s", "fetch_s"):
+            timings[key] = round(acc[key], 4)
         if on_chunk_result is not None:
-            timings["chunk_callback_s"] = round(callback_s, 4)
-    return {k: np.concatenate([ch[k] for ch in chunks], axis=0) for k in chunks[0]}
+            timings["chunk_callback_s"] = round(acc["chunk_callback_s"], 4)
+    with span("aa.pipeline.gather"):
+        return {k: np.concatenate([ch[k] for ch in chunks], axis=0) for k in chunks[0]}
 
 
 def analyze_bundle(

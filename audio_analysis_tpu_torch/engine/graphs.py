@@ -85,6 +85,7 @@ import torch
 
 from audio_analysis_tpu_torch import _build
 from audio_analysis_tpu_torch.ops.common import holding
+from audio_analysis_tpu_torch.utils.timing import span
 
 MAX_GRAPHS = 4
 # the replays over which a capture pays for itself in one call: on the
@@ -177,13 +178,13 @@ class StepGraphs:
         there is one. `calls_ahead`: how many more calls of this key the
         caller makes right after this one."""
         key = self.key(samples, lengths, config)
-        cuda = samples.device.type == "cuda"
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
                 result = step(samples, lengths, config)
                 if calls_ahead >= self.min_calls_ahead or key in self._seen:
-                    self._add(key, step, samples, lengths, config)
+                    with span("aa.graphs.capture"):
+                        self._add(key, step, samples, lengths, config)
                 if calls_ahead == 0:
                     self._seen[key] = None
                     self._seen.move_to_end(key)
@@ -191,25 +192,27 @@ class StepGraphs:
                         self._seen.popitem(last=False)
                 return result
             self._entries.move_to_end(key)
-            if cuda:
-                plans = _plan_cache(samples.device)
-                if plans.size < entry.plans or plans.size >= plans.max_size:
-                    raise RuntimeError(
-                        f"the cuFFT plan cache went from {entry.plans} plans to {plans.size} of {plans.max_size} "
-                        "since this graph was captured: a plan the graph reads may have been freed; clear the "
-                        "graphs (engine.eager()) before clearing, shrinking or filling that cache")
-                stream = torch.cuda.current_stream(samples.device)
-                last = self._streams.get(samples.device)
-                if last is not None and last != stream:
-                    stream.wait_stream(last)
-                self._streams[samples.device] = stream
-            entry.samples.copy_(samples)
-            entry.lengths.copy_(lengths)
-            entry.graph.replay()
-            for counter, n in entry.launches:
-                counter.launches += n
-            self.replays += 1
-            return entry.output.clone(), entry.spec
+            with span("aa.graphs.replay"):
+                if samples.device.type == "cuda":
+                    plans = _plan_cache(samples.device)
+                    if plans.size < entry.plans or plans.size >= plans.max_size:
+                        raise RuntimeError(
+                            f"the cuFFT plan cache went from {entry.plans} plans to {plans.size} of "
+                            f"{plans.max_size} since this graph was captured: a plan the graph reads may have been "
+                            "freed; clear the graphs (engine.eager()) before clearing, shrinking or filling that "
+                            "cache")
+                    stream = torch.cuda.current_stream(samples.device)
+                    last = self._streams.get(samples.device)
+                    if last is not None and last != stream:
+                        stream.wait_stream(last)
+                    self._streams[samples.device] = stream
+                entry.samples.copy_(samples)
+                entry.lengths.copy_(lengths)
+                entry.graph.replay()
+                for counter, n in entry.launches:
+                    counter.launches += n
+                self.replays += 1
+                return entry.output.clone(), entry.spec
 
     def _add(self, key: tuple, step: Callable, samples, lengths, config) -> None:
         while len(self._entries) >= self.capacity:

@@ -41,6 +41,7 @@ from audio_analysis_tpu_torch.report.waterfall import (
     WaterfallAnalysisSettings,
     select_slice_frame_indices,
 )
+from audio_analysis_tpu_torch.utils.timing import span
 
 
 @dataclass(frozen=True)
@@ -326,7 +327,14 @@ def run_bundle_report_engine(
     device: "str | torch.device" = "cuda",
 ) -> Path:
     """Fused-engine bundle analysis on `device`: per-tap summary md +
-    bundle_metrics.json. Returns the path of the index markdown."""
+    bundle_metrics.json. Returns the path of the index markdown. The call
+    is the span `aa.bundle`, its stretches named spans within it
+    (utils/timing.py lists them)."""
+    with span("aa.bundle"):
+        return _bundle_report(bundle_root, settings, device)
+
+
+def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device) -> Path:
     if settings is None:
         settings = EngineBundleSettings()
     device = torch.device(device)
@@ -337,27 +345,29 @@ def run_bundle_report_engine(
             f"Not a capture bundle: {bundle_root} has no meta.json "
             "(expected the recorder layout: meta.json + taps/*.wav)"
         )
-    start_total = time.perf_counter()
+    # unrounded seconds of the spans that feed phases
+    timed: Dict[str, float] = {}
 
     # PCM16 fast path: planar int16 from the native decoder, decoded chunk
     # by chunk on a worker thread; float conversion (and the mono downmix)
     # happen on the device. Otherwise the whole bundle decodes up front.
-    chunked = open_bundle_chunks_i16(bundle_root)
-    if chunked is not None:
-        meta, lengths, names, n_max, loader = chunked
-        batch = None
-        downmix_on_device = settings.use_mono_downmix_for_stereo
-    else:
-        fast = load_bundle_batch_i16(bundle_root)
-        if fast is not None:
-            meta, batch, lengths, names = fast
+    with span("aa.bundle.probe", timed, "probe_s"):
+        chunked = open_bundle_chunks_i16(bundle_root)
+        if chunked is not None:
+            meta, lengths, names, n_max, loader = chunked
+            batch = None
             downmix_on_device = settings.use_mono_downmix_for_stereo
         else:
-            meta, batch, lengths, names = load_bundle_batch(bundle_root)
-            downmix_on_device = False
-            if settings.use_mono_downmix_for_stereo:
-                batch = np.mean(batch, axis=1, keepdims=True).astype(np.float32)
-    load_seconds = time.perf_counter() - start_total
+            fast = load_bundle_batch_i16(bundle_root)
+            if fast is not None:
+                meta, batch, lengths, names = fast
+                downmix_on_device = settings.use_mono_downmix_for_stereo
+            else:
+                meta, batch, lengths, names = load_bundle_batch(bundle_root)
+                downmix_on_device = False
+                if settings.use_mono_downmix_for_stereo:
+                    batch = np.mean(batch, axis=1, keepdims=True).astype(np.float32)
+    load_seconds = timed["probe_s"]
     if len(names) == 0:
         raise ValueError(f"Bundle {bundle_root} has no taps.")
 
@@ -368,9 +378,6 @@ def run_bundle_report_engine(
         config = replace(config, downmix_to_mono=True)
 
     reports_root = bundle_root / settings.reports_subdir
-    reports_root.mkdir(parents=True, exist_ok=True)
-
-    ctx = _summary_context(config, meta.sample_rate_hz)
     tap_lines: List[str] = []
 
     def _write_tap(tap: str, b_global: int, out_like: Dict, b_local: int,
@@ -391,19 +398,23 @@ def run_bundle_report_engine(
 
     def _on_chunk(lo: int, hi: int, res: Dict) -> None:
         # chunk k's summaries are written while later chunks still compute
-        ch_names = _channel_names_from_output(res)
-        for b in range(lo, hi):
-            _write_tap(names[b], b, res, b - lo, ch_names)
+        with span("aa.report.markdown"):
+            ch_names = _channel_names_from_output(res)
+            for b in range(lo, hi):
+                _write_tap(names[b], b, res, b - lo, ch_names)
 
     phases: Dict[str, float] = {"probe_s": round(load_seconds, 4)}
-    start_compute = time.perf_counter()
-    mesh = _engine_mesh(device)
-    if batch is None:
+    with span("aa.bundle.prepare"):
+        reports_root.mkdir(parents=True, exist_ok=True)
+        ctx = _summary_context(config, meta.sample_rate_hz)
+        start_compute = time.perf_counter()
+        mesh = _engine_mesh(device)
         chunk_cache = None
-        if settings.cache_device_audio:
+        if batch is None and settings.cache_device_audio:
             chunk_cache = _device_audio_chunks(
                 bundle_root, names, settings.chunk_taps, n_max, device, mesh
             )
+    if batch is None:
         out = analyze_bundle_pipelined(
             loader, lengths, n_max, config, settings.chunk_taps, mesh=mesh,
             timings=phases, device_chunk_cache=chunk_cache,
@@ -423,50 +434,52 @@ def run_bundle_report_engine(
     channel_names = _channel_names_from_output(out)
 
     if batch is not None:
-        start_markdown = time.perf_counter()
-        for b, tap in enumerate(names):
-            _write_tap(tap, b, out, b, channel_names)
-        phases["markdown_s"] = round(time.perf_counter() - start_markdown, 4)
-
-    index_lines = [
-        "# IR Bundle Report (engine)\n",
-        f"**Bundle:** `{bundle_root}`\n",
-        f"**Sample rate:** {meta.sample_rate_hz}\n",
-        f"**Length (samples):** {meta.length_samples}\n",
-        f"**Taps:** {len(names)}  |  load {load_seconds:.3f}s  |  "
-        f"analysis {compute_seconds:.3f}s\n",
-        "\n## Taps\n",
-    ] + tap_lines
+        with span("aa.report.markdown", timed, "markdown_s"):
+            for b, tap in enumerate(names):
+                _write_tap(tap, b, out, b, channel_names)
+        phases["markdown_s"] = round(timed["markdown_s"], 4)
 
     # machine-readable dump of every metric
-    start_json = time.perf_counter()
-    t30 = np.asarray(out["t30_rt60"])
-    t30_valid = t30[np.asarray(out["t30_ok"]) & np.isfinite(t30)]
-    metrics_json = {
-        "taps": names,
-        "channels": channel_names,
-        "load_seconds": load_seconds,
-        "compute_seconds": compute_seconds,
-        "bundle_median_t30": float(np.median(t30_valid)) if t30_valid.size else None,
-        "phases": phases,  # json_s lands in the file too (dict aliased)
-        # NaN/Infinity are emitted as-is (Python json extension)
-        "metrics": {k: np.asarray(v).tolist() for k, v in out.items()},
-    }
-    # the previous run's file is read before this run's dump overwrites it,
-    # so comparing against the same reports dir in place works
-    compare_section = None
-    if settings.compare_to:
-        compare_section = compare_section_for_index(
-            metrics_json, settings.compare_to, settings.compare_threshold_pct
+    with span("aa.report.json_build", timed, "json_s"):
+        t30 = np.asarray(out["t30_rt60"])
+        t30_valid = t30[np.asarray(out["t30_ok"]) & np.isfinite(t30)]
+        metrics_json = {
+            "taps": names,
+            "channels": channel_names,
+            "load_seconds": load_seconds,
+            "compute_seconds": compute_seconds,
+            "bundle_median_t30": float(np.median(t30_valid)) if t30_valid.size else None,
+            "phases": phases,  # json_s lands in the file too (dict aliased)
+            # NaN/Infinity are emitted as-is (Python json extension)
+            "metrics": {k: np.asarray(v).tolist() for k, v in out.items()},
+        }
+        # the previous run's file is read before this run's dump overwrites
+        # it, so comparing against the same reports dir in place works
+        compare_section = None
+        if settings.compare_to:
+            compare_section = compare_section_for_index(
+                metrics_json, settings.compare_to, settings.compare_threshold_pct
+            )
+    # json_s times building the dict and the compare; the encode and both
+    # writes are the span aa.report.write, in no phase
+    phases["json_s"] = round(timed["json_s"], 4)
+    with span("aa.report.write"):
+        # compact separators keep CPython's C encoder
+        (reports_root / "bundle_metrics.json").write_text(
+            json.dumps(metrics_json, separators=(",", ":"))
         )
-    # compact separators keep CPython's C encoder
-    phases["json_s"] = round(time.perf_counter() - start_json, 4)
-    (reports_root / "bundle_metrics.json").write_text(
-        json.dumps(metrics_json, separators=(",", ":"))
-    )
-    if compare_section:
-        index_lines.append(compare_section)
-
-    index_path = reports_root / "bundle_report.md"
-    index_path.write_text("\n".join(index_lines) + "\n")
+        del metrics_json  # its tens of thousands of floats are freed inside this span, not on return
+        index_lines = [
+            "# IR Bundle Report (engine)\n",
+            f"**Bundle:** `{bundle_root}`\n",
+            f"**Sample rate:** {meta.sample_rate_hz}\n",
+            f"**Length (samples):** {meta.length_samples}\n",
+            f"**Taps:** {len(names)}  |  load {load_seconds:.3f}s  |  "
+            f"analysis {compute_seconds:.3f}s\n",
+            "\n## Taps\n",
+        ] + tap_lines
+        if compare_section:
+            index_lines.append(compare_section)
+        index_path = reports_root / "bundle_report.md"
+        index_path.write_text("\n".join(index_lines) + "\n")
     return index_path

@@ -1,0 +1,9 @@
+"""Device milliseconds a call of the engine's align_decay block in the traced
+window of bundle64.third: the union of device intervals from each aa_mark_align_decay
+marker to the next marker, summed over the chunks (benchlib/blocks.py)."""
+
+from benchlib import blocks
+
+
+def read(ctx):
+    return blocks.block_device_ms(ctx, "align_decay")

@@ -12,7 +12,8 @@ versions on the card, bit for bit; and the
 engine step's CUDA graphs: a graph run bit-equal to the `eager()` run on a
 2-chunk bundle and a mesh of two shards with the kernels' launches
 unchanged, every step config captured after a warm step that makes no
-synchronising call, and a capture that meets a host read raising.
+synchronising call, and a capture that meets a host read raising; the
+step's block markers (ops/marker.py) in order on every replayed chunk.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
 JAX is not needed (the card's machine has none). On the card:
 
@@ -546,6 +547,45 @@ def test_graph_runs_bit_equal_to_eager_on_a_bundle_and_a_mesh(dev, monkeypatch):
         for key, value in ref.items():
             np.testing.assert_array_equal(got[key], value, err_msg=f"{label} {key}")
     cache.clear()
+
+
+@pytest.mark.parametrize("band_mode", ["three", "third"])
+def test_every_replayed_chunk_shows_the_block_markers_in_order(dev, monkeypatch, band_mode):
+    """6 taps in chunks of 2, the step captured on a first call: under
+    torch.profiler a second call replays its 3 chunks, and the device
+    trace holds each chunk's 7 block markers (ops/marker.py), in the
+    step's order, after the call's first upload and before its last
+    fetch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_analysis_tpu_torch.ops import marker
+
+    n = 1 << 16
+    x, lengths = _graph_taps(6, n, 8)
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    monkeypatch.setattr(graphs, "STEP_GRAPHS", cache)
+    config = dataclasses.replace(EngineConfig(), band_mode=band_mode)
+
+    def run():
+        return analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, config, 2, device=dev)
+
+    try:
+        run()
+        torch.cuda.synchronize()
+        before = cache.stats()["replays"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        assert cache.stats()["replays"] - before == 3
+        events = list(prof.profiler.kineto_results.events())
+        marks = sorted((e.start_ns(), e.name()) for e in events
+                       if e.device_type().name == "CUDA" and e.name().startswith("aa_mark_"))
+        assert [name.split("(")[0] for _t, name in marks] == [f"aa_mark_{b}" for b in marker.BLOCKS] * 3
+        kernels = sorted(e.start_ns() for e in events
+                         if e.device_type().name == "CUDA" and not e.name().startswith("aa_mark_"))
+        assert kernels[0] < marks[0][0] and marks[-1][0] < kernels[-1]
+    finally:
+        cache.clear()
 
 
 def test_the_graphs_of_a_device_share_one_pool(dev):
