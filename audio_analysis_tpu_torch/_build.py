@@ -53,6 +53,8 @@ _SIGNATURES = {
     "aa_pool_image": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I32, _I32, _I32, _I32, _P],
     # block, stream
     "aa_mark": [_I32, _P],
+    # curve, lengths, scratch, out_f, out_num, out_ok, rows, n, dt, range_db (host), ranges, min_points, stream
+    "aa_dbfit": [_P, _P, _P, _P, _P, _P, _I64, _I64, _F32, _P, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()
@@ -150,6 +152,8 @@ def library() -> ctypes.CDLL:
             lib.aa_edc_tile_size.restype = ctypes.c_int
             lib.aa_pool_scratch_bytes.argtypes = [_I64]
             lib.aa_pool_scratch_bytes.restype = _I64
+            lib.aa_dbfit_scratch_bytes.argtypes = [_I64, _I64]
+            lib.aa_dbfit_scratch_bytes.restype = _I64
             _lib = lib
         return _lib
 

@@ -19,6 +19,10 @@ device `analyze_batch_flat`, the step every chunk runs, replays one CUDA
 graph per chunk shape and config (engine.graphs) once replays of it are in
 sight, as the JAX engine's step is one jit-compiled program.
 
+On the card the decay block's and the bands block's T30/T20/EDT fits are
+one launch of K5 (ops.dbfit.fit_decay_ranges) a curve plane; the modal
+block's per-bin fits stay plain torch.
+
 On the card `analyze_batch` launches an empty marker kernel at the top of
 the step and at the start of each block it runs (ops.marker), and one at
 its end, so a device trace splits the step's time by block; the step's
@@ -170,16 +174,12 @@ def _band_fits(banded, start, length, factor: int, config: EngineConfig) -> Dict
     curve = edc.schroeder_edc_db(
         aligned.samples, aligned.length, config.edc_epsilon, config.edc_floor_db
     )
+    fits = dbfit.fit_decay_ranges(
+        curve.edc_db, curve.length, (config.t30_range_db, config.t20_range_db, config.edt_range_db),
+        config.fit_lower_limit_db, config.sample_rate_hz / factor,
+    )
     res = {}
-    for name, range_db in (
-        ("band_t30", config.t30_range_db),
-        ("band_t20", config.t20_range_db),
-        ("band_edt", config.edt_range_db),
-    ):
-        fit = dbfit.fit_decay_slope_over_db_range(
-            curve.edc_db, curve.length, range_db, config.fit_lower_limit_db,
-            config.sample_rate_hz / factor,
-        )
+    for name, fit in zip(("band_t30", "band_t20", "band_edt"), fits):
         res[f"{name}_rt60"] = fit.rt60_seconds
         res[f"{name}_ok"] = fit.ok
     return res
@@ -311,14 +311,11 @@ def analyze_batch(
     c10 = dbfit.crossing_time(curve.edc_db, curve.length, -10.0, sr)
     out["early10_time"] = c10.time_seconds - c0.time_seconds
     out["early10_ok"] = c0.found & c10.found & (c10.time_seconds >= c0.time_seconds)
-    for name, range_db in (
-        ("edt", config.edt_range_db),
-        ("t20", config.t20_range_db),
-        ("t30", config.t30_range_db),
-    ):
-        fit = dbfit.fit_decay_slope_over_db_range(
-            curve.edc_db, curve.length, range_db, config.fit_lower_limit_db, sr
-        )
+    fits = dbfit.fit_decay_ranges(
+        curve.edc_db, curve.length, (config.edt_range_db, config.t20_range_db, config.t30_range_db),
+        config.fit_lower_limit_db, sr,
+    )
+    for name, fit in zip(("edt", "t20", "t30"), fits):
         out.update(_fit_metrics(fit, name))
     del curve
 

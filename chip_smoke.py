@@ -25,10 +25,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
        K2 STFT magnitude: 16 rows x 2^20 at (4096, 512) and at (8192, 512)
           with the modal k_out; max |err| / max(ref) < 1e-5; library call
           torch.stft(center=False, Hann) + abs;
+       K5 decay fits: the engine's T30, T20 and EDT ranges on K1's curves
+          of decaying noise with drawn lengths at the main path's shapes
+          of a 24 s tap (1,155,072 samples): a chunk's 16 broadband rows
+          and 48 three-band rows, and a tap's 52 third-octave rows; kernel
+          and plain version on the same card tensors, held together by
+          tests/_dbfit_compare.py (crossing times, point counts and `ok`
+          bit-equal, sums within its TOLERANCE and within one float32
+          rounding of a float64 fit over the same window), plus its edge
+          rows; two calls bit-identical; bound: the bytes these curves
+          need (each row read up to its last crossing, then its windows'
+          union), beside two reads of the plane (`two_reads_ms`);
      (K3 and K4 run on the gen CLI's and the reports' paths, and are held
-     to their plain versions in phases 9 and 10; ptxas' report must list
-     every instance of K1, K3 and K4 (PTXAS_KERNELS) and show no spill in
-     any kernel);
+     to their plain versions in phases 9 and 10; K5 runs once after each
+     of the engine's K1 launches, and its launches are counted beside
+     K1's on every path; ptxas' report must
+     list every instance of K1, K3, K4 and K5 (PTXAS_KERNELS) and show no
+     spill in any kernel);
   3. write a deterministic 16-tap stereo bundle of 2^20 samples per tap
      (bench.py's recipe) under build/;
   4. drive `bundle --no-plots` of the port through its CLI entry, 8 taps
@@ -251,8 +264,8 @@ MAIN_PATH = "bundle"
 # the paths K3 and K4 run on, whose launches the kernels line reports
 KARPLUS_PATH = "gen karplus_pluck --freq 4000"
 POOL_PATH = "report (figures recorded)"
-# every kernel's launch counter name: K1, K2, K3, K4
-KERNELS = ("edc", "stft", "karplus", "pool")
+# every kernel's launch counter name: K1, K2, K3, K4, K5
+KERNELS = ("edc", "stft", "karplus", "pool", "dbfit")
 # K1's planes under --bands-decimate at N = 2^20: (16, N/32) and (16, N/4)
 # per three-band chunk of 8 stereo taps, (12, N/64) per third-octave tap
 DECIMATED_EDC_SHAPES = ((16, N // 32), (16, N // 4), (12, N // 64))
@@ -336,8 +349,8 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
-# the kernel instances of K1, K3 and K4 that ptxas must report
-PTXAS_KERNELS = ("edc_kernel", "karplus_thread_kernel<1>", "karplus_thread_kernel<2>", "karplus_thread_kernel<3>",
+# the kernel instances of K1, K3, K4 and K5 that ptxas must report
+PTXAS_KERNELS = ("edc_kernel", "dbfit_cross_kernel", "dbfit_sum_kernel", "karplus_thread_kernel<1>", "karplus_thread_kernel<2>", "karplus_thread_kernel<3>",
                  "karplus_warp_kernel<3>", "karplus_lanes_kernel<2,false>", "karplus_lanes_kernel<4,false>",
                  "karplus_lanes_kernel<2,true>", "karplus_lanes_kernel<4,true>", "karplus_lanes_kernel<8,true>",
                  "karplus_ring_kernel",
@@ -508,6 +521,104 @@ def check_stft(torch, stft, dev, g, k_out):
             f"torch.stft+abs {lib:.3f} ms ({lib / k:.2f}x the kernel's speed), "
             f"bound {b:.3f} ms ({by}), {b / k:.0%} of bound"
         )
+    return worst, shapes
+
+
+# K5's calls on the main path's curves of a 24 s tap (1,152,000 samples
+# padded to 1,155,072): (rows, path), the third-octave tap's path named
+# since `bundle --no-plots` runs three bands
+DBFIT_N = 1_155_072
+DBFIT_SHAPES = ((16, None), (48, None), (52, "third_octave"))
+DBFIT_RANGES = ((-5.0, -35.0), (-5.0, -25.0), (0.0, -10.0))  # EngineConfig's T30, T20, EDT
+
+
+def dbfit_needed_samples(torch, curve, length, fits, levels, dt: float) -> tuple:
+    """(prefix, union): the samples of the (rows, n) curves the fits cannot
+    do without, each row read up to its last crossing (its length where a
+    level is never reached), then the union of its windows once more."""
+    from audio_analysis_tpu_torch.ops.common import bool_valid_mask
+
+    n = curve.shape[-1]
+    valid = bool_valid_mask(n, length)
+    prefix = torch.zeros(curve.shape[:-1], dtype=torch.int64, device=curve.device)
+    for level in levels:
+        below = (curve <= level) & valid
+        reach = torch.where(below.any(-1), torch.argmax(below.to(torch.uint8), -1) + 1, length.to(torch.int64))
+        prefix = torch.maximum(prefix, reach)
+    t = torch.arange(n, device=curve.device, dtype=torch.float32) * dt
+    union = torch.zeros_like(valid)
+    for fit in fits:
+        union |= valid & (t >= fit.start_time_seconds[..., None]) & (t <= fit.end_time_seconds[..., None])
+    return int(prefix.sum()), int(union.sum())
+
+
+def check_dbfit(torch, edc, dbfit, dev, g):
+    """K5 against its plain version on the same card tensors (K1's curves
+    at the main path's shapes, and the edge rows); returns (largest
+    kernel-plain gap of tests/_dbfit_compare.py's summed fields, relative
+    as it measures them, and per-shape timings)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _dbfit_compare import assert_edge_rows_cornered, assert_fits_agree, edge_curves
+
+    dt = dbfit._seconds_per_sample(SR)
+    levels = sorted({v for high, low in DBFIT_RANGES for v in (high, max(low, -80.0))})
+    worst = 0.0
+    shapes = []
+    n = DBFIT_N
+    for rows, path in DBFIT_SHAPES:
+        # decaying noise falling 35-140 dB over the row, lengths drawn
+        # (the first row whole), through K1
+        tau = n / (8.0 + 52.0 * torch.rand(rows, 1, generator=g))
+        x = torch.randn(rows, n, generator=g) * torch.exp(-torch.arange(n, dtype=torch.float32) / tau)
+        lengths = torch.randint(n // 2, n + 1, (rows,), generator=g, dtype=torch.int32)
+        lengths[0] = n
+        x = torch.where(torch.arange(n) < lengths[:, None], x, 0.0).to(dev)
+        lengths = lengths.to(dev)
+        curve = edc.schroeder_edc_db_cuda(x, lengths)
+
+        def kernel():
+            return dbfit.fit_decay_ranges_cuda(curve, lengths, DBFIT_RANGES, -80.0, SR)
+
+        got, again = kernel(), kernel()
+        ref = dbfit.fit_decay_ranges_plain(curve, lengths, DBFIT_RANGES, -80.0, SR)
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            for name in a._fields:
+                if not torch.equal(getattr(a, name), getattr(b, name)):
+                    raise AssertionError(f"K5 dbfit ({rows}, {n}): two calls differ in {name}")
+        gaps = assert_fits_agree(got, ref, curve.cpu().numpy(), lengths.cpu().numpy(), dt)
+        ok_share = float(ref[0].ok.float().mean())
+        if ok_share <= 0.5:
+            raise AssertionError(f"K5 dbfit ({rows}, {n}): only {ok_share:.0%} of the T30 fits ok")
+        worst = max(worst, *gaps["kernel_vs_plain"].values())
+        k = time_ms(kernel)
+        k_run = time_back_to_back_ms(kernel)
+        p = time_ms(lambda: dbfit.fit_decay_ranges_plain(curve, lengths, DBFIT_RANGES, -80.0, SR))
+        prefix, union = dbfit_needed_samples(torch, curve, lengths, got, levels, dt)
+        needed = 4 * (prefix + union)
+        out_bytes = len(DBFIT_RANGES) * rows * (6 * 4 + 4 + 1) + rows * 4
+        # operations: a compare a level a sample up to the last crossing;
+        # each window sample's 2 differences, 3 products and 5 sums in
+        # float64, at half the float32 rate (counted twice)
+        in_windows = sum(int(f.num_points.sum()) for f in got)
+        b, by = bound(needed + out_bytes, prefix * len(levels) + in_windows * 10 * 2)
+        two_reads = 2 * rows * n * 4 / HBM_BYTES_PER_S * 1e3
+        shape = {"shape": [rows, n], "ms": k, "plain_ms": p, "bound_ms": b, "bound_by": by,
+                 "library_ms": None, "ms_back_to_back": k_run, "two_reads_ms": two_reads,
+                 "needed_bytes": needed, "t30_ok_share": ok_share, **gaps}
+        shapes.append(shape if path is None else {**shape, "path": path})
+        log(f"K5 dbfit ({rows}, {n}){'' if path is None else f' [{path}]'}: crossings, counts and ok "
+            f"bit-equal to the plain version, sums {gaps['kernel_vs_plain']}, two calls bit-identical; "
+            f"kernel {k:.3f} ms ({k_run:.3f} ms a call back to back), plain {p:.3f} ms, bound {b:.3f} ms "
+            f"({by}, {needed / 2**20:.1f} MiB needed), {b / k:.0%} of bound; two reads {two_reads:.3f} ms")
+    curve, lengths = edge_curves(4096 + 3)
+    curve, lengths = curve.to(dev), lengths.to(dev)
+    got = dbfit.fit_decay_ranges_cuda(curve, lengths, DBFIT_RANGES, -80.0, SR)
+    ref = dbfit.fit_decay_ranges_plain(curve, lengths, DBFIT_RANGES, -80.0, SR)
+    assert_edge_rows_cornered(ref)
+    assert_fits_agree(got, ref, curve.cpu().numpy(), lengths.cpu().numpy(), dt)
+    log("K5 dbfit edge rows (length 0, < 8 points, no lower crossing, flat, crossings at index 0, on the "
+        "targets to the bit, noise): agree with the plain version")
     return worst, shapes
 
 
@@ -691,9 +802,9 @@ HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC
 def host_launches(prof) -> dict:
     """From one torch.profiler trace: the host-side launch calls by name,
     the device events that ran inside graph launches (their correlation id
-    is a cudaGraphLaunch's), K1's and K2's among them, and every device
-    event of kineto's raw results (device_busy counts those of
-    prof.events(), which can hold fewer)."""
+    is a cudaGraphLaunch's), K1's, K2's and each of K5's two passes among
+    them, and every device event of kineto's raw results (device_busy
+    counts those of prof.events(), which can hold fewer)."""
     calls = {name: 0 for name in HOST_LAUNCH_CALLS}
     graph_launches = set()
     events = list(prof.profiler.kineto_results.events())
@@ -702,13 +813,14 @@ def host_launches(prof) -> dict:
             calls[e.name()] += 1
             if e.name() == "cudaGraphLaunch":
                 graph_launches.add(e.correlation_id())
-    in_graphs = {"all": 0, "edc": 0, "stft": 0}
+    in_graphs = {"all": 0, "edc": 0, "stft": 0, "dbfit": 0, "dbfit_cross": 0}
     device_events = 0
     for e in events:
         device_events += e.device_type().name == "CUDA"
         if e.device_type().name == "CUDA" and e.correlation_id() in graph_launches:
             in_graphs["all"] += 1
-            for kernel, name in (("edc", "edc_kernel"), ("stft", "stft_mag_kernel")):
+            for kernel, name in (("edc", "edc_kernel"), ("stft", "stft_mag_kernel"), ("dbfit", "dbfit_sum_kernel"),
+                                 ("dbfit_cross", "dbfit_cross_kernel")):
                 in_graphs[kernel] += name in e.name()
     return {"host_calls": calls, "device_events_in_graphs": in_graphs, "kineto_device_events": device_events}
 
@@ -790,10 +902,12 @@ def graph_pool_gib(torch, dev) -> dict:
 def profiled_launches(torch, counters, fn, where: str) -> dict:
     """fn() under torch.profiler with the launch counters read around it;
     every kernel launch the counters add must be a device event inside a
-    graph launch (fn replays every chunk), K1's and K2's counted apart."""
+    graph launch (fn replays every chunk), K1's, K2's and K5's counted
+    apart (a K5 launch is one event of each of its two passes)."""
     prof, launches = count_launches(counters, lambda: device_busy(torch, fn))
     in_graphs = prof["device_events_in_graphs"]
-    if (in_graphs["edc"], in_graphs["stft"]) != (launches["edc"], launches["stft"]):
+    counted = (launches["edc"], launches["stft"], launches["dbfit"], launches["dbfit"])
+    if (in_graphs["edc"], in_graphs["stft"], in_graphs["dbfit"], in_graphs["dbfit_cross"]) != counted:
         raise AssertionError(f"{where}: counted launches {launches}, device events inside graph launches {in_graphs}")
     return {**prof, "launches": launches}
 
@@ -1005,16 +1119,19 @@ def other_loads(torch, cli_main, root: Path, dev, counters) -> dict:
     return out
 
 
-def count_launches(counters, fn, path_kernels=("edc", "stft")):
+def count_launches(counters, fn, path_kernels=("edc", "stft", "dbfit")):
     """fn() with every kernel's launch counter set to 0 just before and read
     just after; raises if a kernel of the path (`path_kernels`: the engine
-    paths' K1 and K2 by default) never launched, or another one did."""
+    paths' K1, K2 and K5 by default) never launched, or another one did,
+    or, on an engine path, K5 did not launch once after each K1 launch."""
     for counter in counters:
         counter.launches = 0
     result = fn()
     launches = {c.name: c.launches for c in counters}
     if not all(bool(n) == (name in path_kernels) for name, n in launches.items()):
         raise AssertionError(f"the path's kernels {path_kernels} never launched, or another did: {launches}")
+    if "dbfit" in path_kernels and launches["dbfit"] != launches["edc"]:
+        raise AssertionError(f"K5 launches {launches['dbfit']}, expected one a K1 launch: {launches}")
     return result, launches
 
 
@@ -1024,11 +1141,12 @@ def plain_versions():
     eager (`engine.eager()`, which clears the graph cache): a graph captured
     with the kernels would replay them under the swap."""
     from audio_analysis_tpu_torch.engine import eager
-    from audio_analysis_tpu_torch.ops import display, edc, stft
+    from audio_analysis_tpu_torch.ops import dbfit, display, edc, stft
     from audio_analysis_tpu_torch.signals import torchgen
 
     with eager(), mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
             mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain), \
+            mock.patch.object(dbfit, "fit_decay_ranges_cuda", dbfit.fit_decay_ranges_plain), \
             mock.patch.object(torchgen, "karplus_strong_batch_cuda", torchgen.karplus_strong_batch_plain), \
             mock.patch.object(display, "_pooled_image_cuda", display._pooled_image_plain):
         yield
@@ -1332,8 +1450,9 @@ def per_file_commands(torch, cli_main, root: Path, dev, counters, launches_by_pa
         torch.cuda.reset_peak_memory_stats(dev)
         (cold, kernel_out), launches = read_launches(counters, lambda: run(full("kernel")))
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        if (launches["edc"], launches["stft"], launches["karplus"], launches["pool"]) != (*want, 0, 0):
-            raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}, K3 0, K4 0")
+        if (launches["edc"], launches["stft"], launches["karplus"], launches["pool"], launches["dbfit"]) != (
+                *want, 0, 0, 0):
+            raise AssertionError(f"{label}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}, K3 0, K4 0, K5 0")
         warm, _ = run(full("kernel"))
         busy = device_busy(torch, lambda: run(full("kernel"))) if wav != verb else None
         with plain_versions():
@@ -2087,10 +2206,10 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from audio_analysis_tpu_torch.cli.analyse_cli import main
 from audio_analysis_tpu_torch.engine import distributed, graphs
-from audio_analysis_tpu_torch.ops import display, edc, stft
+from audio_analysis_tpu_torch.ops import dbfit, display, edc, stft
 from audio_analysis_tpu_torch.signals import torchgen
 
-counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL)
+counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL, dbfit.DBFIT_KERNEL)
 out_json, argv, addresses = sys.argv[2], sys.argv[3:-3], sys.argv[-3:]
 real_analyze, real_gather, engine_s, sent = distributed.analyze_bundle_multi_host, distributed._all_gather, [], []
 
@@ -2264,8 +2383,8 @@ def multi_device_phase(torch, root: Path, dev, counters, launches_by_path: dict,
         if r["banned_modules"]:
             raise AssertionError(f"rank {i} loaded {r['banned_modules']}")
         for one in r["runs"]:
-            if one["launches"] != {"edc": 2, "stft": 2, "karplus": 0, "pool": 0}:
-                raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2, K3 0, K4 0")
+            if one["launches"] != {"edc": 2, "stft": 2, "karplus": 0, "pool": 0, "dbfit": 2}:
+                raise AssertionError(f"rank {i}: launches {one['launches']}, expected K1 2, K2 2, K3 0, K4 0, K5 2")
         # a rank's one chunk: eager in its cold run (no call ahead), captured
         # in its first warm run (the key ended a call), replayed in the second
         if [(one["graphs"]["captures"], one["graphs"]["replays"]) for one in r["runs"]] != [(0, 0), (1, 0), (0, 1)]:
@@ -2567,8 +2686,9 @@ def fuzz_engine(torch, root: Path, dev, counters, rng, seed: int) -> dict:
         (kernel, launches), cold_graphs = graph_runs(lambda: read_launches(counters, run))
         peaks.append((torch.cuda.max_memory_allocated(dev), label, cfg))
         want = expected_engine_launches(cfg, FUZZ_TAPS, n_max)
-        if (launches["edc"], launches["stft"]) != want:
-            raise AssertionError(f"engine fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        if (launches["edc"], launches["stft"], launches["dbfit"]) != (*want, want[0]):
+            raise AssertionError(f"engine fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}, "
+                                 f"K5 {want[0]}")
         for name in totals:
             totals[name] += launches[name]
         # the draw's one chunk: eager, then captured (the key ended a call),
@@ -2731,8 +2851,9 @@ def fuzz_per_file(torch, cli_main, root: Path, counters, rng, seed: int) -> dict
                                                   "--json", str(out_dir / f"{i}_{name}.json")])[1]
 
         kernel_text, launches = read_launches(counters, lambda: run("kernel"))
-        if (launches["edc"], launches["stft"]) != want:
-            raise AssertionError(f"per-file fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}")
+        if (launches["edc"], launches["stft"], launches["dbfit"]) != (*want, 0):
+            raise AssertionError(f"per-file fuzz draw {i}: launches {launches}, expected K1 {want[0]}, K2 {want[1]}, "
+                                 "K5 0")
         for name in totals:
             totals[name] += launches[name]
         with plain_versions():
@@ -2974,9 +3095,10 @@ def fuzz_mesh(torch, root: Path, dev, counters, rng, seed: int) -> dict:
             counters, lambda: analyze_bundle_pipelined(loader, lens, n_max, cfg, chunk, mesh=mesh, device=dev))
         k1, k2 = expected_engine_launches(cfg, per_shard, n_max)
         chunks = -(-taps // (per_shard * shards))
-        if (launches["edc"], launches["stft"]) != (chunks * shards * k1, chunks * shards * k2):
+        want = (chunks * shards * k1, chunks * shards * k2, chunks * shards * k1)
+        if (launches["edc"], launches["stft"], launches["dbfit"]) != want:
             raise AssertionError(f"mesh fuzz draw {i}: launches {launches}, expected {chunks} chunks x {shards} "
-                                 f"shards x (K1 {k1}, K2 {k2})")
+                                 f"shards x (K1 {k1}, K2 {k2}, K5 {k1})")
         single = analyze_bundle_pipelined(loader, lens, n_max, cfg, per_shard, device=dev)
         differing = sorted(k for k in single if not np.array_equal(sharded[k], single[k], equal_nan=True))
         if sorted(sharded) != sorted(single) or differing:
@@ -3054,7 +3176,7 @@ def main(argv=None) -> int:
     from audio_analysis_tpu_torch.engine import EngineConfig, analyze_batch, graphs
     from audio_analysis_tpu_torch.engine.batch import modal_tables
     from audio_analysis_tpu_torch.io import native, read_bundle_meta, write_bundle
-    from audio_analysis_tpu_torch.ops import display, edc, stft
+    from audio_analysis_tpu_torch.ops import dbfit, display, edc, stft
     from audio_analysis_tpu_torch.signals import torchgen
 
     # 1. build
@@ -3077,6 +3199,7 @@ def main(argv=None) -> int:
         k_out = modal_tables(EngineConfig())[2]
         edc_err, edc_shapes = check_edc(torch, edc, dev, g)
         stft_err, stft_shapes = check_stft(torch, stft, dev, g, k_out)
+        dbfit_err, dbfit_shapes = check_dbfit(torch, edc, dbfit, dev, g)
         phases["kernel_check_s"] = time.perf_counter() - t0
 
     # 3. the bundle
@@ -3087,7 +3210,7 @@ def main(argv=None) -> int:
     if not (root / "meta.json").exists() or len(read_bundle_meta(root).taps) != TAPS:
         write_bench_bundle(root, write_bundle)
     phases["bundle_write_s"] = time.perf_counter() - t0
-    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL)
+    counters = (edc.EDC_KERNEL, stft.STFT_KERNEL, torchgen.KARPLUS_KERNEL, display.POOL_KERNEL, dbfit.DBFIT_KERNEL)
     if args.fuzz_only:
         fuzz = fuzz_phase(torch, cli_main, root, dev, counters, {}, args.fuzz_seed)
         check_modules(FUZZ_MODULES, ("jax", "audio_analysis_tpu"))
@@ -3224,6 +3347,8 @@ def main(argv=None) -> int:
         kernel_entry("pooled_log_freq_image", "audio_analysis_tpu_torch/csrc/pool.cu",
                      "audio_analysis_tpu/ops/display.py:151", by_path("pool"), k4["max_abs_err"], k4["shapes"],
                      path=POOL_PATH),
+        kernel_entry("decay_fits", "audio_analysis_tpu_torch/csrc/dbfit.cu", None, by_path("dbfit"), dbfit_err,
+                     dbfit_shapes),
     ]
     for k in kernels:
         numbers = [k["max_abs_err"], k["ms"], k["plain_ms"], k["bound_ms"]]

@@ -27,9 +27,10 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,<>]+), ([^,<>]+), ([^,<>]+), (\w+)>>>\(")
 _EXTERN_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 
-def build_host_library(name: str, launches: int, out_dir: Path) -> ctypes.CDLL:
-    """csrc/<name>.cu with its `launches` launches rewritten, compiled into
-    a shared library in `out_dir` and loaded."""
+def build_host_library(name: str, launches: int, out_dir: Path, extra: str = "") -> ctypes.CDLL:
+    """csrc/<name>.cu with its `launches` launches rewritten and the
+    host-only source `extra` appended, compiled into a shared library in
+    `out_dir` and loaded."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
@@ -37,7 +38,7 @@ def build_host_library(name: str, launches: int, out_dir: Path) -> ctypes.CDLL:
     assert found == launches, f"kernel source changed shape: {found} launches, expected {launches}"
     src = _EXTERN_SHARED.sub(r"\1* \2 = reinterpret_cast<\1*>(host_shared_memory.data());", src)
     cpp, so = out_dir / f"{name}_host.cpp", out_dir / f"lib{name}_host.so"
-    cpp.write_text(src)
+    cpp.write_text(src + extra)
     proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{HOST_INCLUDE}", "-o", str(so), str(cpp), "-lpthread"],
         capture_output=True, text=True, timeout=600,

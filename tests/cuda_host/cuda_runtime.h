@@ -1,7 +1,8 @@
 // Host stand-in for the CUDA subset that the kernel sources of csrc/ use
-// (stft.cu, edc.cu, karplus.cu, pool.cu), so they compile with g++ and run
-// on the CPU (tests/test_torch_stft_host.py, tests/test_torch_edc_host.py,
-// tests/test_torch_karplus_host.py, tests/test_torch_pool_host.py): every CUDA
+// (stft.cu, edc.cu, karplus.cu, pool.cu, dbfit.cu), so they compile with g++
+// and run on the CPU (tests/test_torch_stft_host.py,
+// tests/test_torch_edc_host.py, tests/test_torch_karplus_host.py,
+// tests/test_torch_pool_host.py, tests/test_torch_dbfit_host.py): every CUDA
 // thread of a block is a std::thread, __syncthreads (and a named barrier,
 // which the sources reach through __syncthreads when __CUDA_ARCH__ is not
 // defined) is a std::barrier over the block, a warp shuffle or vote is an
@@ -86,6 +87,12 @@ inline void __stcs(T* p, T v) {
 
 // global and shared atomics alike (shared memory is host memory here)
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  unsigned old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false, __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 constexpr auto kHostWaitLimit = std::chrono::seconds(2);

@@ -13,7 +13,10 @@ engine step's CUDA graphs: a graph run bit-equal to the `eager()` run on a
 2-chunk bundle and a mesh of two shards with the kernels' launches
 unchanged, every step config captured after a warm step that makes no
 synchronising call, and a capture that meets a host read raising; the
-step's block markers (ops/marker.py) in order on every replayed chunk.
+step's block markers (ops/marker.py) in order on every replayed chunk;
+and K5 (the engine's decay fits) against its plain version at the
+engine's shapes and on rows that corner the fits, with its launches on one
+engine chunk of each band mode.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
 JAX is not needed (the card's machine has none). On the card:
 
@@ -27,7 +30,8 @@ tests/parity_matrix.py; the AR Gram within 1e-5 relative Frobenius (float32
 sums of up to 65536 products a chunk); Karplus-Strong identical (the same
 float32 operations in the same order); render jobs within
 tests/_render_jobs.py JOB_TOLERANCES; the pooled image bit-equal, its
-percentiles within one 1/128-dB step.
+percentiles within one 1/128-dB step; K5's crossing times, point counts
+and flags bit-equal, its sums as tests/_dbfit_compare.py states.
 """
 
 import dataclasses
@@ -41,6 +45,7 @@ import golden_utils
 import parity_matrix
 from _render_jobs import RecordingPlotWorker, compare_jobs
 from _ar_reference import ar_normal_equations_f64, relative_frobenius
+from _dbfit_compare import assert_edge_rows_cornered, assert_fits_agree, edge_curves
 from _summary_parity import assert_summaries_agree
 from audio_analysis_tpu_torch import signals
 from audio_analysis_tpu_torch.analyses import decay, filterplot, modalcloud, rt60bands, spectrogram, zplane
@@ -56,7 +61,7 @@ from audio_analysis_tpu_torch.engine import (
 from audio_analysis_tpu_torch.engine import batch as batch_module
 from audio_analysis_tpu_torch.engine import graphs
 from audio_analysis_tpu_torch.engine.batch import band_masks
-from audio_analysis_tpu_torch.ops import display, edc, fftmask, spectral, stft
+from audio_analysis_tpu_torch.ops import dbfit, display, edc, fftmask, spectral, stft
 from audio_analysis_tpu_torch.signals import torchgen
 from test_reference_parity import TOLERANCES
 
@@ -236,7 +241,7 @@ def test_decimated_engine_kernels_match_plain_on_card(dev, band_mode):
     """analyze_batch(bands_decimate=True) on the card through the kernels,
     against the same call with the plain versions swapped in: K1 launches
     once for the broadband decay and once per decimation group (per tap in
-    third-octave mode)."""
+    third-octave mode), and K5 once after each."""
     rng = np.random.default_rng(5)
     n = 1 << 18
     t = np.arange(n) / 48_000
@@ -249,11 +254,13 @@ def test_decimated_engine_kernels_match_plain_on_card(dev, band_mode):
     groups = len(set(fftmask.band_decimation_factors(band_masks(cfg, n), n)))
     assert groups > 1
     xs, ls = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
-    before = edc.EDC_KERNEL.launches
+    before = (edc.EDC_KERNEL.launches, dbfit.DBFIT_KERNEL.launches)
     got = analyze_batch(xs, ls, cfg)
-    assert edc.EDC_KERNEL.launches - before == 1 + groups * (1 if band_mode == "three" else 2)
+    k1 = 1 + groups * (1 if band_mode == "three" else 2)
+    assert (edc.EDC_KERNEL.launches - before[0], dbfit.DBFIT_KERNEL.launches - before[1]) == (k1, k1)
     with mock.patch.object(edc, "schroeder_edc_db_cuda", edc.schroeder_edc_db_plain), \
-            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain):
+            mock.patch.object(stft, "stft_magnitude_cuda", stft.stft_magnitude_plain), \
+            mock.patch.object(dbfit, "fit_decay_ranges_cuda", dbfit.fit_decay_ranges_plain):
         ref = analyze_batch(xs, ls, cfg)
     for key, value in ref.items():
         a, b = got[key].cpu().numpy(), value.cpu().numpy()
@@ -708,3 +715,76 @@ def test_a_capture_that_meets_a_host_read_raises(dev, read):
         cache.run(step, xs, ls, read)
     assert cache.keys() == [] and cache.stats()["captures"] == 0
     assert float(torch.ones(8, device=dev).sum().item()) == 8.0
+
+
+# K5 (csrc/dbfit.cu): the engine's three ranges on K1's curves at the
+# engine's shapes, 1,155,072 samples (the 24 s tap padded): a chunk's 16
+# broadband rows, a tap's 2 x 26 third-octave rows, a chunk's 8 x 2 x 3
+# three-band rows, and the --bands-decimate lengths 2^14-2^18
+ENGINE_RANGES = ((-5.0, -35.0), (-5.0, -25.0), (0.0, -10.0))
+N_TAP = 1_155_072
+DBFIT_SHAPES = {
+    "broadband": ((16,), N_TAP, 48_000),
+    "third_octave": ((2, 26), N_TAP, 48_000),
+    "three_band": ((8, 2, 3), N_TAP, 48_000),
+    "decimated_2^14": ((12,), 1 << 14, 48_000 / 64),
+    "decimated_2^15": ((16,), 1 << 15, 48_000 / 32),
+    "decimated_2^18": ((16,), 1 << 18, 48_000 / 4),
+}
+
+
+def _k1_curves(shape, n: int, seed: int, dev):
+    """K1's curves of decaying noise that falls 35-140 dB over the row,
+    with drawn lengths (the first row whole), on the card."""
+    g = torch.Generator().manual_seed(seed)
+    rows = int(np.prod(shape))
+    tau = n / (8.0 + 52.0 * torch.rand(rows, 1, generator=g))
+    x = torch.randn(rows, n, generator=g) * torch.exp(-torch.arange(n, dtype=torch.float32) / tau)
+    lengths = torch.randint(n // 2, n + 1, (rows,), generator=g, dtype=torch.int32)
+    lengths[0] = n
+    x = torch.where(torch.arange(n) < lengths[:, None], x, 0.0)
+    xs, ls = x.reshape(*shape, n).to(dev), lengths.reshape(shape).to(dev)
+    return edc.schroeder_edc_db(xs, ls).edc_db, ls
+
+
+@pytest.mark.parametrize("case", sorted(DBFIT_SHAPES))
+def test_dbfit_kernel_matches_plain_at_engine_shapes(dev, case):
+    shape, n, sr = DBFIT_SHAPES[case]
+    curve, lengths = _k1_curves(shape, n, len(case) + n, dev)
+    before = dbfit.DBFIT_KERNEL.launches
+    got = dbfit.fit_decay_ranges(curve, lengths, ENGINE_RANGES, -80.0, sr)
+    assert dbfit.DBFIT_KERNEL.launches == before + 1
+    ref = dbfit.fit_decay_ranges_plain(curve, lengths, ENGINE_RANGES, -80.0, sr)
+    rows = int(np.prod(shape))
+    assert_fits_agree(got, ref, curve.reshape(rows, n).cpu().numpy(), lengths.reshape(rows).cpu().numpy(),
+                      dbfit._seconds_per_sample(sr))
+    assert float(ref[0].ok.float().mean()) > 0.5
+
+
+def test_dbfit_kernel_edge_rows(dev):
+    curve, lengths = edge_curves(4096 + 3)
+    got = dbfit.fit_decay_ranges(curve.to(dev), lengths.to(dev), ENGINE_RANGES, -80.0, 48_000)
+    ref = dbfit.fit_decay_ranges_plain(curve.to(dev), lengths.to(dev), ENGINE_RANGES, -80.0, 48_000)
+    assert_edge_rows_cornered(ref)
+    assert_fits_agree(got, ref, curve.numpy(), lengths.numpy(), dbfit._seconds_per_sample(48_000))
+
+
+def test_dbfit_kernel_two_calls_bit_identical(dev):
+    curve, lengths = _k1_curves((2, 26), N_TAP, 11, dev)
+    first = dbfit.fit_decay_ranges_cuda(curve, lengths, ENGINE_RANGES, -80.0, 48_000)
+    second = dbfit.fit_decay_ranges_cuda(curve, lengths, ENGINE_RANGES, -80.0, 48_000)
+    for a, b in zip(first, second):
+        for name in a._fields:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("band_mode,launches", [("three", 2), ("third", 3)])
+def test_dbfit_launches_on_one_engine_chunk(dev, band_mode, launches):
+    """One chunk of 2 taps: K5 fits the broadband curves once, and the band
+    curves once for the chunk at three bands, once a tap at third
+    octaves."""
+    x, lengths = _graph_taps(2, 1 << 16, 8)
+    cfg = dataclasses.replace(EngineConfig(), band_mode=band_mode)
+    before = dbfit.DBFIT_KERNEL.launches
+    analyze_batch(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), cfg)
+    assert dbfit.DBFIT_KERNEL.launches - before == launches
