@@ -8,7 +8,10 @@ toggle as the JAX engine, with the JAX engine's output keys, shapes and
 dtypes (bool `*_ok` flags, int32 indices and counts, float32 elsewhere).
 
 Shapes: samples (B, C, N) float32 zero-padded or raw int16 PCM (scaled by
-1/32768 on the device), lengths (B,) int32.
+1/32768 on the device), lengths (B,) int32. A bundle of C > 2 channels
+loads interleaved (B, N, C) int16 chunks (io.bundle), which
+`analyze_batch_flat(..., interleaved=True)` splits into (B, C, N) float32
+planes on the device first.
 
 `analyze_bundle_pipelined` is the host entry of the bundle report: chunk
 k+1 decodes and uploads on a worker thread (pinned host memory, a side
@@ -25,14 +28,17 @@ block's per-bin fits stay plain torch.
 
 On the card `analyze_batch` launches an empty marker kernel at the top of
 the step and at the start of each block it runs (ops.marker), and one at
-its end, so a device trace splits the step's time by block; the step's
-CUDA graph captures them. The host pipeline's stretches are named spans
-(utils.timing.span; the list is in that module's docstring).
+its end, and the interleaved step one before its split, so a device trace
+splits the step's time by block; the step's CUDA graph captures them. The
+host pipeline's stretches are named spans (utils.timing.span; the list is
+in that module's docstring).
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
@@ -219,6 +225,13 @@ def frame_tap_groups(taps: int, channels: int, n: int, n_fft: int, hop: int) -> 
     per_tap = channels * stft.num_frames_static(n, n_fft, hop) * (n_fft + 2) * 4
     step = max(1, FRAME_PLANE_BUDGET_BYTES // max(per_tap, 1))
     return [(lo, min(taps, lo + step)) for lo in range(0, taps, step)]
+
+
+def frame_groups(taps: int, channels: int, n: int, config: EngineConfig) -> int:
+    """The frame-block tap groups (frame_tap_groups) one step of `taps`
+    taps runs: the shared STFT's and the modal cloud's."""
+    blocks = [config.n_fft] * config.run_stft + [config.modal_n_fft] * config.run_modal
+    return sum(len(frame_tap_groups(taps, channels, n, n_fft, config.hop_length)) for n_fft in blocks)
 
 
 def _modal_fits(samples, length, tables, config: EngineConfig):
@@ -434,7 +447,8 @@ def analyze_batch(
 
 
 def analyze_batch_flat(
-    samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig = EngineConfig(), calls_ahead: int = 0
+    samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig = EngineConfig(), calls_ahead: int = 0,
+    interleaved: bool = False,
 ):
     """`analyze_batch` packed into one float32 vector on the device, with
     its (key, shape, numpy dtype) layout for `unpack_flat`. On a CUDA
@@ -442,10 +456,25 @@ def analyze_batch_flat(
     key without one runs eagerly and is captured after where replays are
     in sight: `calls_ahead` (how many more calls of the same shapes and
     config the caller makes right after this one) reaches
-    `graphs.MIN_CALLS_AHEAD`, or the key ended an earlier call."""
+    `graphs.MIN_CALLS_AHEAD`, or the key ended an earlier call.
+
+    `interleaved`: `samples` is an interleaved (B, N, C) chunk (a bundle
+    of C > 2 channels, io.bundle), which the step splits into (B, C, N)
+    float32 planes first."""
+    step = _analyze_interleaved_flat if interleaved else _analyze_batch_flat
     if graphs.enabled(samples.device):
-        return graphs.STEP_GRAPHS.run(_analyze_batch_flat, samples, lengths, config, calls_ahead)
-    return _analyze_batch_flat(samples, lengths, config)
+        return graphs.STEP_GRAPHS.run(step, samples, lengths, config, calls_ahead)
+    return step(samples, lengths, config)
+
+
+def _analyze_interleaved_flat(samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig):
+    # the channel split (and the PCM16 scaling) in one strided pass on the
+    # device, under its own marker
+    marker.mark("deinterleave", samples.device)
+    scale = 1.0 / 32768.0 if samples.dtype == torch.int16 else 1.0
+    planes = samples.permute(0, 2, 1)
+    planes = torch.mul(planes, scale, out=torch.empty(planes.shape, dtype=torch.float32, device=samples.device))
+    return _analyze_batch_flat(planes, lengths, config)
 
 
 def _analyze_batch_flat(samples: torch.Tensor, lengths: torch.Tensor, config: EngineConfig):
@@ -487,6 +516,28 @@ def _pad_fill_length(n_max: int) -> int:
     return n_max // 2
 
 
+# page-locked host buffers that interleaved chunks are read into, a ring of
+# (prefetch depth + 1) per chunk shape, kept across calls (one pipeline
+# runs at a time): [buffer, the events of its last copies to the devices]
+# each, for the last two shapes
+_STAGING: "OrderedDict[tuple, list]" = OrderedDict()
+_STAGING_SHAPES = 2
+_staging_lock = threading.Lock()
+
+
+def _staging_ring(shape: tuple, slots: int) -> list:
+    with _staging_lock:
+        ring = _STAGING.get(shape)
+        if ring is None or len(ring) < slots:
+            ring = _STAGING[shape] = [
+                [torch.empty(shape, dtype=torch.int16, pin_memory=True), []] for _ in range(slots)
+            ]
+        _STAGING.move_to_end(shape)
+        while len(_STAGING) > _STAGING_SHAPES:
+            _STAGING.popitem(last=False)
+        return ring
+
+
 def analyze_bundle_pipelined(
     loader,
     lengths: np.ndarray,
@@ -508,6 +559,15 @@ def analyze_bundle_pipelined(
     on) while chunk k computes. `prefetch_chunks` chunks decode and upload
     ahead of the one being computed (>= 1).
 
+A loader whose `interleaved` is true (io.bundle.ChunkLoader of a bundle
+    of C = `loader.channels` > 2 channels) gives interleaved
+    (hi-lo, n_max, C) int16 PCM: `loader(lo, hi, out)` reads it into
+    `out`, on a card a page-locked buffer of a ring of prefetch_chunks + 1
+    that the pipeline reuses across chunks and calls (in the span
+    `aa.io.read_interleaved`; `timings` get `read_s`, summed), and each
+    step splits the chunk on the device (analyze_batch_flat). Any other
+    loader gives planar (hi-lo, C, n_max) chunks.
+
     With `mesh` (engine.mesh.make_mesh: a tuple of devices) a chunk is
     `chunk_taps` taps per shard (fewer for a small bundle), each shard's
     contiguous block uploaded to its own device on that device's side
@@ -521,7 +581,12 @@ def analyze_bundle_pipelined(
 
     `on_chunk_result(lo, hi, res)`: when given, results are fetched one
     chunk at a time, in order, and the callback runs on each (pad-trimmed)
-    chunk dict; otherwise every chunk comes back in one packed copy.
+    chunk dict; on a card each chunk's copy to page-locked memory is
+    enqueued behind its step, so chunk k's callback runs while the later
+    chunks compute. Otherwise every chunk comes back in one packed copy.
+
+    An interleaved call's `timings` also get `frame_groups`, the
+    frame-block tap groups (frame_tap_groups) its steps ran.
     """
     from audio_analysis_tpu_torch.engine.mesh import analyze_batch_sharded_flat
 
@@ -532,17 +597,23 @@ def analyze_bundle_pipelined(
     lengths = np.asarray(lengths, np.int32)
     use_cache = device_chunk_cache is not None
     side_streams = {d: torch.cuda.Stream(d) for d in dict.fromkeys(shards) if d.type == "cuda"}
+    prefetch = max(1, int(prefetch_chunks))
+    interleaved = bool(getattr(loader, "interleaved", False))
+    channels = loader.channels if interleaved else 0
+    ring = _staging_ring((chunk, n_max, channels), prefetch + 1) if interleaved and side_streams else None
 
-    def upload(host: np.ndarray):
-        """Each shard's block of `host`: (device tensor, event or None,
-        pinned host tensor kept alive) per shard."""
+    def upload(host: np.ndarray, pinned_host: "torch.Tensor | None" = None):
+        """Each shard's block of `host` (or of `pinned_host`, already
+        page-locked): (device tensor, event or None, pinned host tensor
+        kept alive) per shard."""
         blocks = []
         for i, dev in enumerate(shards):
-            tensor = torch.from_numpy(np.ascontiguousarray(host[i * per_shard : (i + 1) * per_shard]))
+            rows = slice(i * per_shard, (i + 1) * per_shard)
+            tensor = pinned_host[rows] if pinned_host is not None else torch.from_numpy(np.ascontiguousarray(host[rows]))
             if dev.type != "cuda":
                 blocks.append((tensor.to(dev), None, None))
                 continue
-            pinned = tensor.pin_memory()
+            pinned = tensor if pinned_host is not None else tensor.pin_memory()
             with torch.cuda.stream(side_streams[dev]):
                 block = pinned.to(dev, non_blocking=True)
                 event = torch.cuda.Event()
@@ -550,48 +621,77 @@ def analyze_bundle_pipelined(
             blocks.append((block, event, pinned))
         return blocks
 
-    def load_chunk(lo: int, hi: int):
+    def read_interleaved(k: int, lo: int, hi: int, read: Dict[str, float]):
+        """Chunk k's taps read into its staging buffer (a new array off the
+        card), its padding rows zeroed: (host array, pinned tensor or None)."""
+        take = hi - lo
+        if ring is None:
+            host = np.zeros((chunk, n_max, channels), np.int16)
+            with span("aa.io.read_interleaved", read, "read_s"):
+                loader(lo, hi, host[:take])
+            return host, None
+        slot = ring[k % len(ring)]
+        for event in slot[1]:
+            event.synchronize()  # the buffer's last copies to the devices are done
+        pinned = slot[0]
+        host = pinned.numpy()
+        with span("aa.io.read_interleaved", read, "read_s"):
+            loader(lo, hi, host[:take])
+        host[take:] = 0
+        return host, pinned
+
+    def load_chunk(k: int, lo: int, hi: int):
         take = hi - lo
         cl = lengths[lo:hi]
         if take < chunk:
             cl = np.concatenate([cl, np.full(chunk - take, _pad_fill_length(n_max), np.int32)])
         length_blocks = upload(cl)
+        read: Dict[str, float] = {}
         hit = device_chunk_cache.get(lo // chunk) if use_cache else None
         if hit is None:
-            cb = loader(lo, hi)
-            if take < chunk:
-                pad = np.zeros((chunk - take,) + cb.shape[1:], cb.dtype)
-                cb = np.concatenate([cb, pad], axis=0)
-            audio_blocks = upload(cb)
+            if interleaved:
+                host, pinned = read_interleaved(k, lo, hi, read)
+                audio_blocks = upload(host, pinned)
+                if pinned is not None:
+                    ring[k % len(ring)][1] = [event for _block, event, _p in audio_blocks if event is not None]
+            else:
+                cb = loader(lo, hi)
+                if take < chunk:
+                    pad = np.zeros((chunk - take,) + cb.shape[1:], cb.dtype)
+                    cb = np.concatenate([cb, pad], axis=0)
+                audio_blocks = upload(cb)
             if use_cache:
                 device_chunk_cache.put(lo // chunk, tuple(block for block, _, _ in audio_blocks))
         else:
             audio_blocks = [(block, None, None) for block in hit]
-        return length_blocks, audio_blocks
+        return length_blocks, audio_blocks, read.get("read_s")
 
     # unrounded seconds of the phases below, rounded into `timings` at the end
     acc = {"decode_wait_s": 0.0, "h2d_dispatch_s": 0.0, "fetch_s": 0.0, "chunk_callback_s": 0.0}
+    reads = []
     flats = []
+    copies = []
     takes = []
     spec = None
-    prefetch = max(1, int(prefetch_chunks))
     starts = list(range(0, b, chunk))
     with ThreadPoolExecutor(max_workers=prefetch) as ex:
         # a submit starts a worker thread or hands it the chunk, and waits
         # for the interpreter lock the workers hold while they start
         with span("aa.pipeline.prefetch"):
             futs = {
-                i: ex.submit(load_chunk, starts[i], min(b, starts[i] + chunk))
+                i: ex.submit(load_chunk, i, starts[i], min(b, starts[i] + chunk))
                 for i in range(min(prefetch, len(starts)))
             }
         for i, lo in enumerate(starts):
             hi = min(b, lo + chunk)
             with span("aa.pipeline.decode_wait", acc, "decode_wait_s"):
-                length_blocks, audio_blocks = futs.pop(i).result()
+                length_blocks, audio_blocks, read_s = futs.pop(i).result()
+            if read_s is not None:
+                reads.append(read_s)
             nxt = i + prefetch
             if nxt < len(starts):
                 with span("aa.pipeline.prefetch"):
-                    futs[nxt] = ex.submit(load_chunk, starts[nxt], min(b, starts[nxt] + chunk))
+                    futs[nxt] = ex.submit(load_chunk, nxt, starts[nxt], min(b, starts[nxt] + chunk))
             with span("aa.pipeline.dispatch", acc, "h2d_dispatch_s"):
                 for blocks in (length_blocks, audio_blocks):
                     for dev, (block, event, _pinned) in zip(shards, blocks):
@@ -601,9 +701,21 @@ def analyze_bundle_pipelined(
                             block.record_stream(compute)
                 flat, spec = analyze_batch_sharded_flat(
                     shards, [blk for blk, _, _ in audio_blocks], [blk for blk, _, _ in length_blocks], config,
-                    chunks_ahead=len(starts) - 1 - i,
+                    chunks_ahead=len(starts) - 1 - i, interleaved=interleaved,
                 )
                 flats.append(flat)
+                if on_chunk_result is not None and flat.device.type == "cuda":
+                    # the chunk's own copy into page-locked memory, right
+                    # behind its step on the stream: its fetch waits for
+                    # this chunk, not for the chunks dispatched after it,
+                    # so the callback runs while they compute
+                    host_flat = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+                    host_flat.copy_(flat, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(flat.device))
+                    copies.append((host_flat, done))
+                else:
+                    copies.append((flat, None))
             takes.append(hi - lo)
         with span("aa.pipeline.gather"):
             ex.shutdown()  # every future is done; the block's exit finds it shut
@@ -617,8 +729,10 @@ def analyze_bundle_pipelined(
                 res = {k: v[:take] for k, v in res.items()}
             chunks.append(res)
     else:
-        for k_idx, (flat, take) in enumerate(zip(flats, takes)):
+        for k_idx, ((flat, done), take) in enumerate(zip(copies, takes)):
             with span("aa.pipeline.fetch", acc, "fetch_s"):
+                if done is not None:
+                    done.synchronize()
                 host = flat.cpu().numpy()
                 with span("aa.pipeline.unpack"):
                     res = unpack_flat(host, spec)
@@ -636,6 +750,11 @@ def analyze_bundle_pipelined(
             timings[key] = round(acc[key], 4)
         if on_chunk_result is not None:
             timings["chunk_callback_s"] = round(acc["chunk_callback_s"], 4)
+        if interleaved:
+            # the prefetch workers' reads, summed: they overlap the device
+            timings["read_s"] = round(sum(reads), 4)
+            timings["frame_groups"] = len(starts) * len(shards) * frame_groups(
+                per_shard, 1 if config.downmix_to_mono else channels, n_max, config)
     with span("aa.pipeline.gather"):
         return {k: np.concatenate([ch[k] for ch in chunks], axis=0) for k in chunks[0]}
 

@@ -32,7 +32,7 @@ import torch.distributed as dist
 from audio_analysis_tpu_torch.engine.batch import analyze_bundle_pipelined
 from audio_analysis_tpu_torch.engine.config import EngineConfig
 from audio_analysis_tpu_torch.engine.mesh import AGGREGATE_INPUTS, bundle_aggregates, make_mesh
-from audio_analysis_tpu_torch.io import open_bundle_chunks, read_bundle_meta
+from audio_analysis_tpu_torch.io import ChunkLoader, open_bundle_chunks, read_bundle_meta
 
 DEFAULT_TIMEOUT_S = 600.0
 
@@ -158,8 +158,8 @@ def analyze_bundle_multi_host(
         chunk_taps = EngineBundleSettings.chunk_taps
         cache = _device_audio_chunks(bundle_root, local_names, chunk_taps, n_max, mesh[0], mesh)
         local = analyze_bundle_pipelined(
-            lambda a, z: loader(lo + a, lo + z), lengths[lo:hi], n_max, config, chunk_taps,
-            mesh=mesh, device_chunk_cache=cache,
+            ChunkLoader(lambda a, z, *out: loader(lo + a, lo + z, *out), loader.channels, loader.interleaved),
+            lengths[lo:hi], n_max, config, chunk_taps, mesh=mesh, device_chunk_cache=cache,
         )
 
     # rank order is tap order: the parts concatenate to the whole bundle

@@ -4,8 +4,9 @@ and `analyze_batch_flat` are `jax.jit` programs
 (audio_analysis_tpu/engine/batch.py:237 and :570): a chunk is one dispatch
 of an executable compiled once per argument shape, dtype and static
 config. Here, on a CUDA device, `analyze_batch_flat` replays one CUDA graph
-per (device, samples shape and dtype, lengths shape and dtype,
-EngineConfig) key, the key under which `jax.jit` compiles a new program.
+per (device, samples shape and dtype, lengths shape and dtype, step,
+EngineConfig) key, the key under which `jax.jit` compiles a new program
+(the step: the planar one, or the one that splits an interleaved chunk).
 
 - When to capture. A capture costs more host time than one eager chunk
   and pays back only over the replays after it (PERF.md §5 measures both),
@@ -170,14 +171,14 @@ class StepGraphs:
         self.captures = self.replays = self.evictions = self.memory_returns = 0
 
     @staticmethod
-    def key(samples: torch.Tensor, lengths: torch.Tensor, config) -> tuple:
-        return (samples.device, tuple(samples.shape), samples.dtype, tuple(lengths.shape), lengths.dtype, config)
+    def key(step: Callable, samples: torch.Tensor, lengths: torch.Tensor, config) -> tuple:
+        return (samples.device, tuple(samples.shape), samples.dtype, tuple(lengths.shape), lengths.dtype, step, config)
 
     def run(self, step: Callable, samples: torch.Tensor, lengths: torch.Tensor, config, calls_ahead: int = 0):
         """step(samples, lengths, config), through the key's graph where
         there is one. `calls_ahead`: how many more calls of this key the
         caller makes right after this one."""
-        key = self.key(samples, lengths, config)
+        key = self.key(step, samples, lengths, config)
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:

@@ -165,7 +165,7 @@ def analyze_batch_sharded(
 
 
 def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig = EngineConfig(),
-                               chunks_ahead: int = 0):
+                               chunks_ahead: int = 0, interleaved: bool = False):
     """
     A sharded chunk packed into one float32 vector on the mesh's first
     device, laid out exactly like `analyze_batch_flat` of the whole chunk
@@ -175,7 +175,8 @@ def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig 
     tap count must be a multiple of the shard count (callers pad); no
     bundle aggregates. `chunks_ahead`: how many more chunks of this shape
     the caller runs right after this one (each shard's step counts the
-    calls of its key still to come, engine.graphs).
+    calls of its key still to come, engine.graphs). `interleaved`: the
+    shards are interleaved (B, N, C) chunks (analyze_batch_flat).
     """
     if not isinstance(batch, (list, tuple)) and np.shape(batch)[0] % len(mesh):
         raise ValueError(f"batch of {np.shape(batch)[0]} taps not divisible by mesh taps={len(mesh)} (pad the chunk)")
@@ -184,7 +185,7 @@ def analyze_batch_sharded_flat(mesh: Mesh, batch, lengths, config: EngineConfig 
     for i, (d, x, n) in enumerate(zip(mesh, samples, lens)):
         ahead = chunks_ahead * mesh.count(d) + mesh[i + 1:].count(d)
         with _on_device(d):
-            flat, spec = analyze_batch_flat(x, n, config, ahead)
+            flat, spec = analyze_batch_flat(x, n, config, ahead, interleaved)
         flats.append(flat.to(mesh[0], non_blocking=True))
     if len(flats) == 1:
         return flats[0], spec

@@ -331,10 +331,38 @@ def run_bundle_report_engine(
     is the span `aa.bundle`, its stretches named spans within it
     (utils/timing.py lists them)."""
     with span("aa.bundle"):
-        return _bundle_report(bundle_root, settings, device)
+        # the span aa.report.tail, from the last chunk's fetch to the return
+        tail: Dict = {}
+        try:
+            return _bundle_report(bundle_root, settings, device, tail)
+        finally:
+            if "span" in tail:
+                tail["span"].__exit__(None, None, None)
 
 
-def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device) -> Path:
+class _MetricsJson:
+    """bundle_metrics.json's "metrics" object, encoded a chunk at a time as
+    its results arrive: each key's rows joined in tap order give the bytes
+    that json.dumps(..., separators=(",", ":")) gives the whole
+    {key: array.tolist()} dict, NaN and Infinity included."""
+
+    def __init__(self) -> None:
+        self._rows: Dict[str, List[str]] = {}
+
+    def add(self, res: Dict[str, np.ndarray]) -> None:
+        for key, value in res.items():
+            # the chunk's list without its brackets: its taps' rows
+            self._rows.setdefault(key, []).append(json.dumps(np.asarray(value).tolist(), separators=(",", ":"))[1:-1])
+
+    def dumps(self, head: Dict) -> str:
+        """The file: `head`'s keys, then "metrics" last."""
+        text = json.dumps(dict(head, metrics=0), separators=(",", ":"))
+        assert text.endswith(',"metrics":0}')
+        body = ",".join(f"{json.dumps(key)}:[{','.join(rows)}]" for key, rows in self._rows.items())
+        return text[: -len("0}")] + "{" + body + "}}"
+
+
+def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device, tail: Dict) -> Path:
     if settings is None:
         settings = EngineBundleSettings()
     device = torch.device(device)
@@ -348,28 +376,36 @@ def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device
     # unrounded seconds of the spans that feed phases
     timed: Dict[str, float] = {}
 
-    # PCM16 fast path: planar int16 from the native decoder, decoded chunk
-    # by chunk on a worker thread; float conversion (and the mono downmix)
-    # happen on the device. Otherwise the whole bundle decodes up front.
+    # PCM16 fast path: int16 decoded chunk by chunk on a worker thread,
+    # planar from the native decoder for mono and stereo, interleaved (the
+    # data chunks as they are) for C > 2; float conversion, the channel
+    # split and the mono downmix happen on the device. Otherwise the whole
+    # bundle decodes up front.
     with span("aa.bundle.probe", timed, "probe_s"):
         chunked = open_bundle_chunks_i16(bundle_root)
         if chunked is not None:
             meta, lengths, names, n_max, loader = chunked
             batch = None
             downmix_on_device = settings.use_mono_downmix_for_stereo
+            channels = loader.channels
         else:
             fast = load_bundle_batch_i16(bundle_root)
             if fast is not None:
                 meta, batch, lengths, names = fast
                 downmix_on_device = settings.use_mono_downmix_for_stereo
+                channels = batch.shape[1]
             else:
                 meta, batch, lengths, names = load_bundle_batch(bundle_root)
                 downmix_on_device = False
-                if settings.use_mono_downmix_for_stereo:
+                channels = batch.shape[1]
+                if settings.use_mono_downmix_for_stereo and channels == 2:
                     batch = np.mean(batch, axis=1, keepdims=True).astype(np.float32)
     load_seconds = timed["probe_s"]
     if len(names) == 0:
         raise ValueError(f"Bundle {bundle_root} has no taps.")
+    if settings.use_mono_downmix_for_stereo and channels > 2:
+        raise ValueError(
+            f"The stereo downmix (--mono) needs mono or stereo taps; {bundle_root} has {channels} channels a tap")
 
     config = settings.config
     if config.sample_rate_hz != meta.sample_rate_hz:
@@ -379,6 +415,7 @@ def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device
 
     reports_root = bundle_root / settings.reports_subdir
     tap_lines: List[str] = []
+    metrics_text = _MetricsJson()
 
     def _write_tap(tap: str, b_global: int, out_like: Dict, b_local: int,
                    channel_names: List[str]) -> None:
@@ -397,11 +434,18 @@ def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device
         tap_lines.append(f"- [{tap}]({tap}/{tap}_report.md)")
 
     def _on_chunk(lo: int, hi: int, res: Dict) -> None:
-        # chunk k's summaries are written while later chunks still compute
+        # chunk k's summaries and its part of bundle_metrics.json are done
+        # while later chunks still compute; what the last chunk's leaves is
+        # the call's tail
+        if hi == len(names):
+            tail["span"] = span("aa.report.tail").__enter__()
+            tail["t0"] = time.perf_counter()
         with span("aa.report.markdown"):
             ch_names = _channel_names_from_output(res)
             for b in range(lo, hi):
                 _write_tap(names[b], b, res, b - lo, ch_names)
+        with span("aa.report.json_encode"):
+            metrics_text.add(res)
 
     phases: Dict[str, float] = {"probe_s": round(load_seconds, 4)}
     with span("aa.bundle.prepare"):
@@ -434,41 +478,44 @@ def _bundle_report(bundle_root, settings: Optional[EngineBundleSettings], device
     channel_names = _channel_names_from_output(out)
 
     if batch is not None:
+        tail["span"] = span("aa.report.tail").__enter__()
+        tail["t0"] = time.perf_counter()
         with span("aa.report.markdown", timed, "markdown_s"):
             for b, tap in enumerate(names):
                 _write_tap(tap, b, out, b, channel_names)
+            metrics_text.add(out)
         phases["markdown_s"] = round(timed["markdown_s"], 4)
 
     # machine-readable dump of every metric
     with span("aa.report.json_build", timed, "json_s"):
         t30 = np.asarray(out["t30_rt60"])
         t30_valid = t30[np.asarray(out["t30_ok"]) & np.isfinite(t30)]
-        metrics_json = {
+        head = {
             "taps": names,
             "channels": channel_names,
             "load_seconds": load_seconds,
             "compute_seconds": compute_seconds,
             "bundle_median_t30": float(np.median(t30_valid)) if t30_valid.size else None,
-            "phases": phases,  # json_s lands in the file too (dict aliased)
-            # NaN/Infinity are emitted as-is (Python json extension)
-            "metrics": {k: np.asarray(v).tolist() for k, v in out.items()},
+            "phases": phases,  # json_s (and tail_s) land in the file too (dict aliased)
         }
         # the previous run's file is read before this run's dump overwrites
         # it, so comparing against the same reports dir in place works
         compare_section = None
         if settings.compare_to:
             compare_section = compare_section_for_index(
-                metrics_json, settings.compare_to, settings.compare_threshold_pct
+                dict(head, metrics={k: np.asarray(v).tolist() for k, v in out.items()}),
+                settings.compare_to, settings.compare_threshold_pct,
             )
-    # json_s times building the dict and the compare; the encode and both
-    # writes are the span aa.report.write, in no phase
+    # json_s times building the head and the compare; the join and both
+    # writes are the span aa.report.write, in no phase; a bundle of C > 2
+    # channels also gets tail_s, the tail up to that span
     phases["json_s"] = round(timed["json_s"], 4)
+    if channels > 2:
+        phases["tail_s"] = round(time.perf_counter() - tail["t0"], 4)
     with span("aa.report.write"):
         # compact separators keep CPython's C encoder
-        (reports_root / "bundle_metrics.json").write_text(
-            json.dumps(metrics_json, separators=(",", ":"))
-        )
-        del metrics_json  # its tens of thousands of floats are freed inside this span, not on return
+        (reports_root / "bundle_metrics.json").write_text(metrics_text.dumps(head))
+        del metrics_text  # the encoded rows are freed inside this span, not on return
         index_lines = [
             "# IR Bundle Report (engine)\n",
             f"**Bundle:** `{bundle_root}`\n",

@@ -26,13 +26,24 @@ engine/graphs.py), all named `aa.*`:
         aa.pipeline.unpack
       aa.pipeline.callback       the per-chunk callback (markdown_s)
         aa.report.markdown       the chunk's per-tap summaries
+        aa.report.json_encode    the chunk's rows of bundle_metrics.json
       aa.pipeline.gather         executor shutdown, the final concatenation
-      aa.report.json_build       the metrics dict, the compare (json_s)
-      aa.report.write            json.dumps, bundle_metrics.json, the index,
-                                 freeing the metrics dict
+      aa.report.tail             from the last chunk's fetch to the return:
+                                 its callback, json_build, write (a bundle
+                                 of C > 2 channels: tail_s, up to write)
+      aa.report.json_build       the file's head, the compare (json_s)
+      aa.report.write            joining the encoded rows, bundle_metrics.json,
+                                 the index, freeing the rows
+
+    on the prefetch worker's thread, for a bundle of C > 2 channels:
+      aa.io.read_interleaved     a chunk's taps read into its page-locked
+                                 buffer (read_s, summed over the chunks)
 
 (On the float32 path, which decodes the whole bundle up front, the
-summaries are one `aa.report.markdown` after the pipeline.)
+summaries and the encoding are one `aa.report.markdown` after the pipeline,
+inside `aa.report.tail`.) The engine step's own markers are ops/marker.py's.
+A bundle of C > 2 channels also counts `frame_groups` in its phases: the
+frame-block tap groups its steps ran (engine.batch.frame_tap_groups).
 """
 
 from __future__ import annotations

@@ -878,7 +878,8 @@ def block_times(torch, analyze_batch, EngineConfig, root: Path, dev) -> dict:
     # device-busy time
     graphs.STEP_GRAPHS.clear()
     analyze_batch_flat(pcm, lens, base, graphs.MIN_CALLS_AHEAD)
-    out["capture_ms"] = graphs.STEP_GRAPHS.capture_ms(graphs.STEP_GRAPHS.key(pcm, lens, base))
+    (key,) = graphs.STEP_GRAPHS.keys()
+    out["capture_ms"] = graphs.STEP_GRAPHS.capture_ms(key)
     out["chunk_replay_elapsed_ms"] = time_ms(lambda: analyze_batch_flat(pcm, lens, base), reps=5)
     out["chunk_replay_busy_ms"] = device_busy(torch, lambda: analyze_batch_flat(pcm, lens, base))["device_busy_ms"]
     return out

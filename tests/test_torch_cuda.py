@@ -14,7 +14,9 @@ engine step's CUDA graphs: a graph run bit-equal to the `eager()` run on a
 unchanged, every step config captured after a warm step that makes no
 synchronising call, and a capture that meets a host read raising; the
 step's block markers (ops/marker.py) in order on every replayed chunk;
-and K5 (the engine's decay fits) against its plain version at the
+chunks of 16 interleaved channels split on the card against the planar
+CPU run, and their graph runs bit-equal to eager() through one reused
+ring of page-locked staging buffers; and K5 (the engine's decay fits) against its plain version at the
 engine's shapes and on rows that corner the fits, with its launches on one
 engine chunk of each band mode.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
@@ -556,25 +558,99 @@ def test_graph_runs_bit_equal_to_eager_on_a_bundle_and_a_mesh(dev, monkeypatch):
     cache.clear()
 
 
+def _interleaved_taps(taps: int, channels: int, n: int, seed: int):
+    """(taps, n, channels) int16 PCM of decaying noise behind an impulse,
+    as a bundle of C > 2 channels loads, and the lengths."""
+    x, lengths = _graph_taps(taps, n, seed)
+    wide = np.concatenate([x * (1.0 - 0.05 * k) for k in range(channels // 2)], axis=1)
+    return np.ascontiguousarray((wide * 32767.0).astype(np.int16).transpose(0, 2, 1)), lengths
+
+
+def _interleaved_run(x, lengths, config, dev, chunk=2):
+    from audio_analysis_tpu_torch.io import ChunkLoader
+
+    def read(lo, hi, out):
+        out[...] = x[lo:hi]
+    loader = ChunkLoader(read, x.shape[2], True)
+    return analyze_bundle_pipelined(loader, lengths, x.shape[1], config, chunk, device=dev)
+
+
+def test_interleaved_chunks_on_card_match_planar_cpu(dev):
+    """3 taps of 16 interleaved PCM16 channels through the pipeline's
+    staging buffers and the step's split on the card, against the same
+    taps planar on the CPU: flags and counts equal, metrics as
+    test_engine_on_card_matches_cpu holds them."""
+    n = 1 << 16
+    x, lengths = _interleaved_taps(3, 16, n, 11)
+    cfg = dataclasses.replace(EngineConfig(), band_mode="third")
+    got = _interleaved_run(x, lengths, cfg, dev)
+    planar = np.ascontiguousarray(x.transpose(0, 2, 1))
+    ref = analyze_bundle_pipelined(lambda lo, hi: planar[lo:hi], lengths, n, cfg, 2, device="cpu")
+    assert sorted(got) == sorted(ref) and got["start_index"].shape == (3, 16)
+    for key, value in ref.items():
+        a, b = got[key], value
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if key.endswith("_ok") or a.dtype == np.int32:
+            np.testing.assert_array_equal(a, b, err_msg=key)
+        else:
+            rtol = 1e-2 if key in ("modal_rt60", "modal_r2") else 1e-3
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=1e-4, equal_nan=True, err_msg=key)
+
+
+def test_interleaved_graph_runs_bit_equal_to_eager_and_reuse_the_staging_ring(dev, monkeypatch):
+    """5 taps of 16 channels in chunks of 2 (the last chunk padded): a
+    call captures the interleaved key after its first chunk and replays
+    it for the other two, a second call replays all three, both bit-equal
+    to the eager() run; the page-locked staging buffers are the
+    same ones in every call, one ring of prefetch + 1 for the shape."""
+    n = 1 << 16
+    x, lengths = _interleaved_taps(5, 16, n, 12)
+    with eager():
+        ref = _interleaved_run(x, lengths, EngineConfig(), dev)
+    cache = graphs.StepGraphs(min_calls_ahead=0)
+    monkeypatch.setattr(graphs, "STEP_GRAPHS", cache)
+    try:
+        rings = []
+        for _call in range(2):
+            got = _interleaved_run(x, lengths, EngineConfig(), dev)
+            rings.append([slot[0].data_ptr() for slot in batch_module._STAGING[(2, n, 16)]])
+            for key, value in ref.items():
+                np.testing.assert_array_equal(got[key], value, err_msg=key)
+        assert cache.stats()["captures"] == 1 and cache.stats()["replays"] == 5
+        assert rings[0] == rings[1] and len(rings[0]) == 3
+        assert batch_module._STAGING[(2, n, 16)][0][0].is_pinned()
+    finally:
+        cache.clear()
+
+
+@pytest.mark.parametrize("layout", ["planar", "interleaved"])
 @pytest.mark.parametrize("band_mode", ["three", "third"])
-def test_every_replayed_chunk_shows_the_block_markers_in_order(dev, monkeypatch, band_mode):
+def test_every_replayed_chunk_shows_the_block_markers_in_order(dev, monkeypatch, band_mode, layout):
     """6 taps in chunks of 2, the step captured on a first call: under
     torch.profiler a second call replays its 3 chunks, and the device
-    trace holds each chunk's 7 block markers (ops/marker.py), in the
-    step's order, after the call's first upload and before its last
-    fetch."""
+    trace holds each chunk's block markers (ops/marker.py), in the step's
+    order, after the call's first upload and before its last fetch: 7 a
+    planar chunk, and the split's marker first on an interleaved one."""
     from torch.profiler import ProfilerActivity, profile
 
     from audio_analysis_tpu_torch.ops import marker
 
     n = 1 << 16
-    x, lengths = _graph_taps(6, n, 8)
     cache = graphs.StepGraphs(min_calls_ahead=0)
     monkeypatch.setattr(graphs, "STEP_GRAPHS", cache)
     config = dataclasses.replace(EngineConfig(), band_mode=band_mode)
+    if layout == "planar":
+        x, lengths = _graph_taps(6, n, 8)
+        blocks = [b for b in marker.BLOCKS if b != "deinterleave"]
 
-    def run():
-        return analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, config, 2, device=dev)
+        def run():
+            return analyze_bundle_pipelined(lambda lo, hi: x[lo:hi], lengths, n, config, 2, device=dev)
+    else:
+        x, lengths = _interleaved_taps(6, 4, n, 8)
+        blocks = list(marker.BLOCKS)
+
+        def run():
+            return _interleaved_run(x, lengths, config, dev)
 
     try:
         run()
@@ -587,7 +663,7 @@ def test_every_replayed_chunk_shows_the_block_markers_in_order(dev, monkeypatch,
         events = list(prof.profiler.kineto_results.events())
         marks = sorted((e.start_ns(), e.name()) for e in events
                        if e.device_type().name == "CUDA" and e.name().startswith("aa_mark_"))
-        assert [name.split("(")[0] for _t, name in marks] == [f"aa_mark_{b}" for b in marker.BLOCKS] * 3
+        assert [name.split("(")[0] for _t, name in marks] == [f"aa_mark_{b}" for b in blocks] * 3
         kernels = sorted(e.start_ns() for e in events
                          if e.device_type().name == "CUDA" and not e.name().startswith("aa_mark_"))
         assert kernels[0] < marks[0][0] and marks[-1][0] < kernels[-1]

@@ -178,7 +178,7 @@ def test_cache_keys_on_shape_dtype_lengths_and_config():
     s, ls = _chunk((2, 3), 6)
     cache.run(_toy_step, s, torch.cat([ls, ls]), 1.0)  # lengths shape
     assert cache.stats() == {"graphs": 5, "captures": 5, "replays": 2, "evictions": 0, "memory_returns": 0}
-    assert cache.keys()[-1] == cache.key(s, torch.cat([ls, ls]), 1.0)
+    assert cache.keys()[-1] == cache.key(_toy_step, s, torch.cat([ls, ls]), 1.0)
     assert {k[1:3] for k in cache.keys()} == {((2, 3), torch.float32), ((2, 4), torch.float32), ((2, 3), torch.int16)}
 
 
@@ -188,16 +188,16 @@ def test_cache_evicts_the_least_recently_used_at_capacity():
     chunks = [_chunk((1, 2 + i), i) for i in range(5)]
     for s, ls in chunks[:4]:
         cache.run(_toy_step, s, ls, 1.0)
-    evicted = cache._entries[cache.key(*chunks[1], 1.0)].graph
+    evicted = cache._entries[cache.key(_toy_step, *chunks[1], 1.0)].graph
     cache.run(_toy_step, *chunks[0], 1.0)  # a replay makes key 0 the most recent
     cache.run(_toy_step, *chunks[4], 1.0)
-    assert cache.keys() == [cache.key(*chunks[i], 1.0) for i in (2, 3, 0, 4)]
+    assert cache.keys() == [cache.key(_toy_step, *chunks[i], 1.0) for i in (2, 3, 0, 4)]
     assert evicted.resets == 1 and cache.stats()["evictions"] == 1
     before = TOY.launches
     flat, _spec = cache.run(_toy_step, *chunks[1], 1.0)  # captured again: its first call is eager
     assert TOY.launches - before == TOY_LAUNCHES
     torch.testing.assert_close(flat, _toy_step(*chunks[1], 1.0)[0], rtol=0, atol=0)
-    assert cache.keys()[0] == cache.key(*chunks[3], 1.0)
+    assert cache.keys()[0] == cache.key(_toy_step, *chunks[3], 1.0)
     cache.clear()
     assert cache.keys() == [] and cache.stats()["evictions"] == 6
 
