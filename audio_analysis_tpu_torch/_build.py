@@ -43,8 +43,8 @@ _F32 = ctypes.c_float
 
 # name -> argtypes of every exported C entry (all return a cudaError_t as int)
 _SIGNATURES = {
-    # x, lengths, tile_sums, out, rows, n, eps, floor_db, stream
-    "aa_edc_db": [_P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
+    # x, lengths, starts (or null), tile_sums, out, rows, n, eps, floor_db, stream
+    "aa_edc_db": [_P, _P, _P, _P, _P, _I64, _I64, _F32, _F32, _P],
     # x, lengths, window, twiddle, out, rows, n, n_fft, hop, frames, k_out, floor_lin, stream
     "aa_stft_mag": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _F32, _P],
     # init, out, strings, delay, total, g, b, stream

@@ -112,14 +112,16 @@ def analyse_rt60_bands_channels(
     ignore = int(round(ds.ignore_leading_seconds * sample_rate_hz))
     if ignore > 0:
         start = torch.minimum(start + ignore, length)
-    aligned = trim.shift_bands_to(banded, start, length)
-
+    # the EDC reads each band row from its channel's start (on the card, K1
+    # with row starts: no shifted copy of the plane)
+    plane = banded.shape[:-1]
     curve = edc.schroeder_edc_db(
-        aligned.samples,
-        aligned.length,
+        banded,
+        length[..., None].expand(plane),
         edc_epsilon=ds.edc_epsilon,
         edc_floor_db=ds.edc_floor_db,
         smoothing_window_samples=ds.edc_smoothing_window_samples,
+        start=start[..., None].expand(plane),
     )
 
     ranges = {"t30": ds.t30_range_db}
@@ -134,7 +136,7 @@ def analyse_rt60_bands_channels(
         for range_db in ranges.values()
     ]
     # one copy for every fit plane and the aligned lengths
-    host = fetch_packed(aligned.length, *[t for fit in fits for t in (fit.rt60_seconds, fit.ok)])
+    host = fetch_packed(curve.length, *[t for fit in fits for t in (fit.rt60_seconds, fit.ok)])
     seg_len = host[0]
     rt60 = {key: np.where(host[2 + 2 * k], host[1 + 2 * k], np.nan) for k, key in enumerate(ranges)}
 

@@ -63,6 +63,26 @@
 // 2^-22 absolute on [0.5, 2] and 2 ulp elsewhere, so above -100 dB (energies
 // within 2^-34 of a total below 2^40) it adds at most 4 x 2^-18 x 3.0103,
 // about 5e-5 dB, to the curve.
+//
+// Row starts (optional). The engine's bands block aligns every band row of
+// a channel at that channel's broadband start before its curve. Given a
+// `starts` array the kernel does that alignment as it reads, in place of a
+// shifted copy of the plane: row r's sample i is x[r n + s_r + i] with
+// s_r = clamp(start_r, 0, n), read only for i < min(length_r, n - s_r),
+// where length_r is the aligned length max(original length - start_r, 0)
+// that ops/trim.py shift_to computes (the wrapper passes it). The curve is
+// written aligned, at index 0 of its row, and 0 past length_r, as without
+// starts. Tiles, carries, masks and the summation order stay keyed to the
+// aligned index i, so the output is bit-identical to shift_to followed by
+// the kernel without starts. A shifted row is rarely 16-byte aligned
+// (s_r % 4 != 0, three rows in four), so a whole tile at misalignment
+// m = 1..3 floats still loads coalesced float4s (shift_chunks). The starts
+// take a kernel of their own, shifted_edc_kernel (the same work items,
+// compiled with kShifted), which the C entry launches for a non-null
+// `starts`; edc_kernel, without them, is the kernel as it was. On the H100
+// (scripts/torch_edc_ab.py --starts) shifted rows take about 6% longer than
+// aligned ones: a warp's 512 bytes straddle five 128-byte lines, and the
+// shuffles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +133,48 @@ __device__ __forceinline__ bool aligned16(const float* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// row `row`'s start clamped to [0, n]
+__device__ __forceinline__ long long row_start(const int* starts, unsigned row, long long n) {
+  const long long st = starts[row];
+  return st < 0 ? 0 : st > n ? n : st;
+}
+
+template <typename T>
+__device__ __forceinline__ T load(const T* p, bool scan) {
+  return scan ? __ldcs(p) : __ldcg(p);
+}
+
+// A whole tile of a row whose first sample lies m = 1, 2, 3 floats past a
+// 16-byte boundary is read in two steps. First each lane loads the aligned
+// float4 that holds most of its chunk (shifted_offset): at m = 1, 2 the one
+// at or below the chunk, whose first m floats belong to the lane before; at
+// m = 3 the one a float above it. The lane at the warp's edge also loads the
+// floats no neighbour in its warp holds (e0, e1). Then, once a scan item's
+// row totals are read, as on the other paths, shift_chunks puts each chunk
+// together by shuffle: at m = 1, 2 its last m floats from the next lane's
+// float4, at m = 3 its first float from the lane before's.
+__device__ __forceinline__ int shifted_offset(int m) { return m == 3 ? 1 : -m; }
+
+__device__ __forceinline__ void shift_chunks(int m, int lane, float (&s)[kRounds][kVec],
+                                             const float (&e0)[kRounds], const float (&e1)[kRounds]) {
+#pragma unroll
+  for (int c = 0; c < kRounds; ++c) {
+    const float x0 = s[c][0], x1 = s[c][1], x2 = s[c][2], x3 = s[c][3];
+    if (m == 3) {
+      const float first = __shfl_up_sync(0xffffffffu, x3, 1);
+      s[c][0] = lane == 0 ? e0[c] : first, s[c][1] = x0, s[c][2] = x1, s[c][3] = x2;
+    } else {
+      const float a = __shfl_down_sync(0xffffffffu, x0, 1);
+      if (m == 1) {
+        s[c][0] = x1, s[c][1] = x2, s[c][2] = x3, s[c][3] = lane == 31 ? e0[c] : a;
+      } else {
+        const float b = __shfl_down_sync(0xffffffffu, x1, 1);
+        s[c][0] = x2, s[c][1] = x3, s[c][2] = lane == 31 ? e0[c] : a, s[c][3] = lane == 31 ? e1[c] : b;
+      }
+    }
+  }
+}
+
 // A published tile total: the float's bits and a flag in the high word,
 // stored and loaded as one aligned 64-bit word, so a reader sees either
 // nothing (0) or the whole value. No fence or count sits between a scan and
@@ -138,13 +200,16 @@ __device__ __forceinline__ float await_total(const unsigned long long* slot, uns
 struct ItemShared {
   unsigned ticket;       // this item's ticket, taken during the item before
   int length;            // its row's valid length
+  long long start;       // its row's clamped start (kShifted only)
   float4 warp_sums[kWarps];  // each warp's sum of each chunk round
   float after_tile[kWarps];  // partial sums of the later tiles' totals
   float after_first[kWarps]; // ... and of the totals of tiles 1..
 };
 
-__global__ void __launch_bounds__(kThreads) edc_kernel(
-    const float* __restrict__ x, const int* __restrict__ lengths,
+// the work of one block, with row starts (kShifted) or without
+template <bool kShifted>
+__device__ __forceinline__ void edc_items(
+    const float* __restrict__ x, const int* __restrict__ lengths, const int* __restrict__ starts,
     unsigned long long* __restrict__ tile_totals, unsigned* __restrict__ ticket_counter,
     float* __restrict__ out, unsigned rows, long long n, unsigned tiles, float eps,
     float floor_db) {
@@ -158,6 +223,7 @@ __global__ void __launch_bounds__(kThreads) edc_kernel(
     const unsigned q = atomicAdd(ticket_counter, 1u);
     sh[0].ticket = q;
     sh[0].length = q < items ? lengths[item_of(q, rows, tiles).row] : 0;
+    if constexpr (kShifted) sh[0].start = q < items ? row_start(starts, item_of(q, rows, tiles).row, n) : 0;
   }
   __syncthreads();
 
@@ -173,27 +239,67 @@ __global__ void __launch_bounds__(kThreads) edc_kernel(
     const Item it = item_of(q, rows, tiles);
     const long long tile0 = (long long)it.tile * kTile;
     const float* xr = x + it.row * n + tile0;
+    if constexpr (kShifted) xr += cur.start;
     float* orow = out + it.row * n + tile0;
     unsigned long long* row_totals = tile_totals + (long long)it.row * tiles;
     // samples [0, limit) of the tile lie inside the row and its length; a
     // tile wholly past the length (limit 0) reads nothing: total 0, curve 0
     const long long len = cur.length < n ? cur.length : n;
     const int limit = len <= tile0 ? 0 : len - tile0 >= kTile ? kTile : (int)(len - tile0);
-    const bool vec_in = limit == kTile && aligned16(xr);
 
     // this thread's samples: chunk c at offset c kRoundStride + tid kVec
     float s[kRounds][kVec];
+    // kShifted: a tile read by shifted float4 loads has its misalignment in
+    // `shift` (else 0) and its edge lane's floats in e0, e1
+    int shift = 0;
+    float e0[kRounds] = {}, e1[kRounds] = {};
+    if constexpr (kShifted) {
+      // of [0, limit), samples [0, avail) lie before the row's end from the
+      // start; the rest read 0
+      const long long rest = n - cur.start - tile0;
+      const int avail = rest < limit ? (rest <= 0 ? 0 : (int)rest) : limit;
+      const int m = (int)((reinterpret_cast<uintptr_t>(xr) >> 2) & 3);
+      // the shifted loads reach up to 3 floats below the tile (inside the
+      // plane when its base is 16-byte aligned) and 1 float past it
+      if (avail == kTile && m != 0 && aligned16(x) && rest >= kTile + kVec) {
+        shift = m;
+        const bool edge = lane == (m == 3 ? 0 : 31);
 #pragma unroll
-    for (int c = 0; c < kRounds; ++c) {
-      const int o = c * kRoundStride + tid * kVec;
-      if (vec_in) {
-        const float4* p = reinterpret_cast<const float4*>(xr + o);
-        const float4 f = it.scan ? __ldcs(p) : __ldcg(p);
-        s[c][0] = f.x, s[c][1] = f.y, s[c][2] = f.z, s[c][3] = f.w;
+        for (int c = 0; c < kRounds; ++c) {
+          const int o = c * kRoundStride + tid * kVec;
+          const float4 f = load(reinterpret_cast<const float4*>(xr + o + shifted_offset(m)), it.scan);
+          s[c][0] = f.x, s[c][1] = f.y, s[c][2] = f.z, s[c][3] = f.w;
+          if (edge) e0[c] = load(xr + o + (m == 3 ? 0 : 4 - m), it.scan);
+          if (edge && m == 2) e1[c] = load(xr + o + 3, it.scan);
+        }
+      } else if (avail == kTile && m == 0) {
+#pragma unroll
+        for (int c = 0; c < kRounds; ++c) {
+          const float4 f = load(reinterpret_cast<const float4*>(xr + c * kRoundStride + tid * kVec), it.scan);
+          s[c][0] = f.x, s[c][1] = f.y, s[c][2] = f.z, s[c][3] = f.w;
+        }
       } else {
 #pragma unroll
-        for (int j = 0; j < kVec; ++j)
-          s[c][j] = o + j < limit ? (it.scan ? __ldcs(xr + o + j) : __ldcg(xr + o + j)) : 0.0f;
+        for (int c = 0; c < kRounds; ++c) {
+          const int o = c * kRoundStride + tid * kVec;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) s[c][j] = o + j < avail ? load(xr + o + j, it.scan) : 0.0f;
+        }
+      }
+    } else {
+      const bool vec_in = limit == kTile && aligned16(xr);
+#pragma unroll
+      for (int c = 0; c < kRounds; ++c) {
+        const int o = c * kRoundStride + tid * kVec;
+        if (vec_in) {
+          const float4* p = reinterpret_cast<const float4*>(xr + o);
+          const float4 f = it.scan ? __ldcs(p) : __ldcg(p);
+          s[c][0] = f.x, s[c][1] = f.y, s[c][2] = f.z, s[c][3] = f.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < kVec; ++j)
+            s[c][j] = o + j < limit ? (it.scan ? __ldcs(xr + o + j) : __ldcg(xr + o + j)) : 0.0f;
+        }
       }
     }
 
@@ -220,6 +326,10 @@ __global__ void __launch_bounds__(kThreads) edc_kernel(
         cur.after_tile[warp] = a;
         cur.after_first[warp] = b;
       }
+    }
+
+    if constexpr (kShifted) {
+      if (shift != 0) shift_chunks(shift, lane, s, e0, e1);
     }
 
     // energy, then each chunk's serial suffix in place
@@ -251,6 +361,7 @@ __global__ void __launch_bounds__(kThreads) edc_kernel(
       ItemShared& nxt = sh[k ^ 1];
       nxt.ticket = next;
       nxt.length = next < items ? lengths[item_of(next, rows, tiles).row] : 0;
+      if constexpr (kShifted) nxt.start = next < items ? row_start(starts, item_of(next, rows, tiles).row, n) : 0;
     }
     __syncthreads();
     // a total item needs only thread 0's carry below
@@ -325,16 +436,73 @@ __global__ void __launch_bounds__(kThreads) edc_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) edc_kernel(
+    const float* __restrict__ x, const int* __restrict__ lengths,
+    unsigned long long* __restrict__ tile_totals, unsigned* __restrict__ ticket_counter,
+    float* __restrict__ out, unsigned rows, long long n, unsigned tiles, float eps,
+    float floor_db) {
+  edc_items<false>(x, lengths, nullptr, tile_totals, ticket_counter, out, rows, n, tiles, eps, floor_db);
+}
+
+// Row starts. A shifted tile's samples and edge floats stay in registers
+// across the totals' read: held to the 4 blocks an SM that edc_kernel gets
+// by itself (64 registers at 256 threads), which on the H100 is faster than
+// the 3 blocks it gets uncapped.
+__global__ void __launch_bounds__(kThreads, 4) shifted_edc_kernel(
+    const float* __restrict__ x, const int* __restrict__ lengths, const int* __restrict__ starts,
+    unsigned long long* __restrict__ tile_totals, unsigned* __restrict__ ticket_counter,
+    float* __restrict__ out, unsigned rows, long long n, unsigned tiles, float eps,
+    float floor_db) {
+  edc_items<true>(x, lengths, starts, tile_totals, ticket_counter, out, rows, n, tiles, eps, floor_db);
+}
+
+template <bool kShifted>
+cudaError_t launch(const float* x, const int* lengths, const int* starts, float* scratch, float* out,
+                   long long rows, long long n, float eps, float floor_db, cudaStream_t s) {
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long items = 2 * rows * tiles;
+  // blocks the card holds at once, asked once per process and instance
+  // (its cards alike)
+  static int resident = 0;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      if constexpr (kShifted)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shifted_edc_kernel, kThreads, 0);
+      else
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edc_kernel, kThreads, 0);
+    }
+    if (err != cudaSuccess) return err;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long blocks = items < resident ? items : resident;
+  unsigned long long* totals = reinterpret_cast<unsigned long long*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(totals + rows * tiles);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)(rows * tiles) * 8 + 4, s);
+  if (err != cudaSuccess) return err;
+  if constexpr (kShifted)
+    shifted_edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, lengths, starts, totals, ticket, out,
+                                                             (unsigned)rows, n, (unsigned)tiles, eps, floor_db);
+  else
+    edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, lengths, totals, ticket, out, (unsigned)rows,
+                                                     n, (unsigned)tiles, eps, floor_db);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int aa_edc_tile_size() { return kTile; }
 
-// x, out: (rows, n) float32 row-major; lengths: (rows,) int32; scratch:
-// rows * ceil(n / kTile) 64-bit flagged tile totals followed by the 32-bit
-// ticket counter, all of which this entry zeroes on the stream before the
-// one launch. The grid is as many blocks as the card holds at once (fewer
-// for a small call); each block works through tickets until they run out.
-extern "C" int aa_edc_db(const float* x, const int* lengths, float* scratch,
+// x, out: (rows, n) float32 row-major; lengths: (rows,) int32; starts:
+// (rows,) int32 or null (see "Row starts" above; lengths are then the
+// aligned lengths); scratch: rows * ceil(n / kTile) 64-bit flagged tile
+// totals followed by the 32-bit ticket counter, all of which this entry
+// zeroes on the stream before the one launch. The grid is as many blocks as
+// the card holds at once (fewer for a small call); each block works through
+// tickets until they run out.
+extern "C" int aa_edc_db(const float* x, const int* lengths, const int* starts, float* scratch,
                          float* out, long long rows, long long n, float eps,
                          float floor_db, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
@@ -343,25 +511,7 @@ extern "C" int aa_edc_db(const float* x, const int* lengths, float* scratch,
     return (int)cudaErrorInvalidValue;
   const long long tiles = (n + kTile - 1) / kTile;
   if (tiles > 0x3fffffffLL || rows > 0x3fffffffLL / tiles) return (int)cudaErrorInvalidValue;
-  const long long items = 2 * rows * tiles;
-  // blocks the card holds at once, asked once per process (its cards alike)
-  static int resident = 0;
-  if (resident == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edc_kernel, kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  const long long blocks = items < resident ? items : resident;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned long long* totals = reinterpret_cast<unsigned long long*>(scratch);
-  unsigned* ticket = reinterpret_cast<unsigned*>(totals + rows * tiles);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (size_t)(rows * tiles) * 8 + 4, s);
-  if (err != cudaSuccess) return (int)err;
-  edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, lengths, totals, ticket, out, (unsigned)rows,
-                                                   n, (unsigned)tiles, eps, floor_db);
-  return (int)cudaGetLastError();
+  return (int)(starts != nullptr ? launch<true>(x, lengths, starts, scratch, out, rows, n, eps, floor_db, s)
+                                 : launch<false>(x, lengths, nullptr, scratch, out, rows, n, eps, floor_db, s));
 }

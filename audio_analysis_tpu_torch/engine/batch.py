@@ -171,15 +171,18 @@ def _fit_metrics(fit: dbfit.DecayFit, prefix: str) -> Dict[str, torch.Tensor]:
 
 def _band_fits(banded, start, length, factor: int, config: EngineConfig) -> Dict[str, torch.Tensor]:
     """Per-band alignment at the broadband start, EDC and the T30/T20/EDT
-    fits of a (..., C, bands, N/factor) band plane -> (..., C, bands)."""
+    fits of a (..., C, bands, N/factor) band plane -> (..., C, bands). The
+    EDC reads each band row from its channel's start: on the card K1 takes
+    the row starts, so no shifted copy of the plane is made (on the CPU the
+    plain version runs trim.shift_to first)."""
     plane = banded.shape[:-1]
     if factor > 1:
         start, length = start // factor, length // factor
-    aligned = trim.shift_to(banded, start[..., None].expand(plane), length[..., None].expand(plane))
-    del banded  # the caller passes the plane without keeping it
     curve = edc.schroeder_edc_db(
-        aligned.samples, aligned.length, config.edc_epsilon, config.edc_floor_db
+        banded, length[..., None].expand(plane), config.edc_epsilon, config.edc_floor_db,
+        start=start[..., None].expand(plane),
     )
+    del banded  # the caller passes the plane without keeping it
     fits = dbfit.fit_decay_ranges(
         curve.edc_db, curve.length, (config.t30_range_db, config.t20_range_db, config.edt_range_db),
         config.fit_lower_limit_db, config.sample_rate_hz / factor,

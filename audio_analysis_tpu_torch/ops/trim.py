@@ -26,6 +26,16 @@ def peak_index(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mag, dim=-1).to(torch.int32)
 
 
+def aligned_length(start: torch.Tensor, length: torch.Tensor, batch_shape) -> torch.Tensor:
+    """The valid length `shift_to` leaves, max(length - start, 0), with
+    `start` and `length` broadcast over `batch_shape` (int32)."""
+    return torch.clamp(
+        torch.broadcast_to(length.to(torch.int32), batch_shape)
+        - torch.broadcast_to(start.to(torch.int32), batch_shape),
+        min=0,
+    )
+
+
 def shift_to(x: torch.Tensor, start: torch.Tensor, length: torch.Tensor) -> AlignedSignal:
     """
     Shift x so original index `start` (clipped to [0, N]) lands at 0;
@@ -35,23 +45,14 @@ def shift_to(x: torch.Tensor, start: torch.Tensor, length: torch.Tensor) -> Alig
     n = x.shape[-1]
     batch_shape = x.shape[:-1]
     start_b = torch.broadcast_to(start.to(torch.int32), batch_shape)
-    length_b = torch.broadcast_to(length.to(torch.int32), batch_shape)
     src = torch.clamp(start_b, 0, n).to(torch.int64)[..., None] + torch.arange(
         n, device=x.device
     )
     in_range = src < n
     shifted = torch.gather(x, -1, torch.where(in_range, src, 0))
-    new_length = torch.clamp(length_b - start_b, min=0).to(torch.int32)
+    new_length = aligned_length(start_b, length, batch_shape)
     keep = in_range & bool_valid_mask(n, new_length)
     return AlignedSignal(torch.where(keep, shifted, 0.0), new_length, start_b)
-
-
-def shift_bands_to(x: torch.Tensor, start: torch.Tensor, length: torch.Tensor) -> AlignedSignal:
-    """`shift_to` over a (..., bands, N) plane with per-(...) start and
-    length shared across the bands axis."""
-    start_b = torch.broadcast_to(start[..., None], x.shape[:-1])
-    length_b = torch.broadcast_to(length[..., None], x.shape[:-1])
-    return shift_to(x, start_b, length_b)
 
 
 def align_for_analysis(

@@ -272,6 +272,9 @@ DECIMATED_EDC_SHAPES = ((16, N // 32), (16, N // 4), (12, N // 64))
 # K1's planes of the per-file commands on a stereo 2^20 tap: decay, and
 # rt60bands' three bands x stereo
 PER_FILE_EDC_SHAPES = ((2, N), (6, N))
+# the 24 s bundle tap padded to the decoder's multiple of 4096, whose
+# third-octave band rows K1 reads from their starts
+BAND_TAP_N = 1_155_072
 # per-module (rel, abs) summary tolerances of tests/test_reference_parity.py
 SUMMARY_TOLERANCES = {
     "decay": (1e-3, 1e-3), "rt60bands": (1e-3, 2e-3), "fr": (5e-3, 1.0), "spectrogram": (1e-3, 0.5),
@@ -350,7 +353,7 @@ def ptxas_report(build_log: str) -> dict:
 
 
 # the kernel instances of K1, K3, K4 and K5 that ptxas must report
-PTXAS_KERNELS = ("edc_kernel", "dbfit_cross_kernel", "dbfit_sum_kernel", "karplus_thread_kernel<1>", "karplus_thread_kernel<2>", "karplus_thread_kernel<3>",
+PTXAS_KERNELS = ("edc_kernel", "shifted_edc_kernel", "dbfit_cross_kernel", "dbfit_sum_kernel", "karplus_thread_kernel<1>", "karplus_thread_kernel<2>", "karplus_thread_kernel<3>",
                  "karplus_warp_kernel<3>", "karplus_lanes_kernel<2,false>", "karplus_lanes_kernel<4,false>",
                  "karplus_lanes_kernel<2,true>", "karplus_lanes_kernel<4,true>", "karplus_lanes_kernel<8,true>",
                  "karplus_ring_kernel",
@@ -397,24 +400,29 @@ def time_back_to_back_ms(fn, calls: int = 20, reps: int = 3) -> float:
 # ------------------------------------------------------------ kernels ----
 
 
-def edc_error(torch, edc, x, lengths) -> float:
-    """K1 against its plain version on (x, lengths): max dB error above
-    -100 dB; raises unless it is within 0.02 dB, the curve is exactly 0 past
-    `length` and exactly 0 dB at index 0, and a second call is bit-identical
+def edc_error(torch, edc, x, lengths, starts=None) -> float:
+    """K1 against its plain version on (x, lengths), each row read from its
+    start where `starts` is given: max dB error above -100 dB; raises
+    unless it is within 0.02 dB, the curve is exactly 0 past the (aligned)
+    length and exactly 0 dB at index 0, and a second call is bit-identical
     to the first."""
+    from audio_analysis_tpu_torch.ops import trim
+
     rows, n = x.shape
-    got = edc.schroeder_edc_db_cuda(x, lengths)
-    again = edc.schroeder_edc_db_cuda(x, lengths)
-    ref = edc.schroeder_edc_db_plain(x, lengths)
+    valid = lengths if starts is None else trim.aligned_length(starts, lengths, (rows,))
+    got = edc.schroeder_edc_db_cuda(x, valid, start=starts)
+    again = edc.schroeder_edc_db_cuda(x, valid, start=starts)
+    ref = edc.schroeder_edc_db_plain(x, valid, start=starts)
     torch.cuda.synchronize()
-    past = torch.arange(n, device=x.device)[None, :] >= lengths[:, None]
+    past = torch.arange(n, device=x.device)[None, :] >= valid[:, None]
     usable = (ref > -100.0) & ~past
     err = (got - ref).abs()[usable].max().item()
+    what = "K1 edc" if starts is None else "K1 edc with row starts"
     if not (err <= 0.02 and bool((got[past] == 0).all()) and bool((got[:, 0] == 0).all())):
-        raise AssertionError(f"EDC kernel disagrees at ({rows}, {n}): {err} dB")
+        raise AssertionError(f"{what} disagrees at ({rows}, {n}): {err} dB")
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError(f"EDC kernel: two calls at ({rows}, {n}) differ")
-    log(f"K1 edc ({rows}, {n}): max err {err:.3g} dB above -100 dB; 0 past length; "
+        raise AssertionError(f"{what}: two calls at ({rows}, {n}) differ")
+    log(f"{what} ({rows}, {n}): max err {err:.3g} dB above -100 dB; 0 past length; "
         "0 dB at index 0; two calls bit-identical")
     return err
 
@@ -475,6 +483,47 @@ def check_edc(torch, edc, dev, g):
                        "bound_by": by, "library_ms": None, "ms_back_to_back": k_run})
         log(f"K1 edc ({rows}, {n}) [{path}]: kernel {k:.3f} ms ({k_run:.3f} ms a call back to "
             f"back), plain {p:.3f} ms, bound {b:.4f} ms ({by}), {b / k:.0%} of bound")
+    # the bands block's planes, one stereo and one 16-channel third-octave
+    # tap at the bundle's padded length, each row read from its channel's
+    # start (drawn in [64, 2048): three in four off the 16-byte grid): held
+    # to the plain version with the same starts by edc_error's checks, and
+    # bit-identical to trim.shift_to and K1 without starts; timed beside
+    # that route and beside K1 alone on the unshifted rows. Same bound.
+    from audio_analysis_tpu_torch.ops import trim
+
+    n = BAND_TAP_N
+    gd = torch.Generator(device=dev).manual_seed(52)
+    for rows in (52, 416):
+        t = torch.arange(n, dtype=torch.float32, device=dev)
+        xr = 0.01 * torch.randn(rows, n, generator=gd, device=dev) * torch.exp(-t / 30000.0)
+        st = torch.randint(64, 2048, (rows,), generator=gd, dtype=torch.int32, device=dev)
+        lr = torch.full((rows,), n - 3072, dtype=torch.int32, device=dev)
+        worst = max(worst, edc_error(torch, edc, xr, lr, starts=st))
+        la = trim.aligned_length(st, lr, (rows,))
+        got = edc.schroeder_edc_db_cuda(xr, la, start=st)
+        aligned = trim.shift_to(xr, st, lr)
+        ref = edc.schroeder_edc_db_cuda(aligned.samples, aligned.length)
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"K1 with row starts at ({rows}, {n}) differs from shift_to and K1")
+        del aligned, ref, got
+        k = time_ms(lambda: edc.schroeder_edc_db_cuda(xr, la, start=st))
+        k_run = time_back_to_back_ms(lambda: edc.schroeder_edc_db_cuda(xr, la, start=st))
+        unshifted = time_ms(lambda: edc.schroeder_edc_db_cuda(xr, lr))
+
+        def shift_then_k1():
+            aligned = trim.shift_to(xr, st, lr)
+            return edc.schroeder_edc_db_cuda(aligned.samples, aligned.length)
+
+        shifted = time_ms(shift_then_k1)
+        p = time_ms(lambda: edc.schroeder_edc_db_plain(xr, la, start=st), reps=3)
+        b, by = bound(rows * n * 4 * 2 + rows * 8, rows * n * 4.0)
+        shapes.append({"shape": [rows, n], "path": "band_starts", "ms": k, "plain_ms": p, "bound_ms": b,
+                       "bound_by": by, "library_ms": None, "ms_back_to_back": k_run,
+                       "no_starts_ms": unshifted, "shift_to_then_k1_ms": shifted})
+        log(f"K1 edc ({rows}, {n}) [band_starts]: within 0.02 dB of plain, bit-identical to shift_to + K1; kernel {k:.3f} ms "
+            f"({k_run:.3f} ms back to back), without starts {unshifted:.3f} ms, shift_to + K1 {shifted:.3f} ms, "
+            f"plain {p:.3f} ms, bound {b:.3f} ms ({by}), {b / k:.0%} of bound")
+        del xr
     return worst, shapes
 
 

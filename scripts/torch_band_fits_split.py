@@ -6,21 +6,28 @@ one NVIDIA GPU. Run from the repository root:
     python3 scripts/torch_band_fits_split.py [--reps 5]
 
 One chunk of 8 stereo taps of 1,155,072 samples (the 24 s bundle tap padded
-to the decoder's multiple of 4096): decaying noise with a direct impulse,
-T60 drawn log-uniform in 0.5-8 s per tap, seed 0. Three planes, as the
-engine step forms them:
+to the decoder's multiple of 4096): decaying noise with a direct impulse
+at a delay drawn in [64, 2048) per channel (so three starts in four are
+off the 16-byte grid), T60 drawn log-uniform in 0.5-8 s per tap, seed 0.
+Four planes, as the engine step forms them:
 
-- third: one tap's third-octave bands, (2, 26, N), the per-tap loop of the
-  bands block (engine/batch.py `_band_fits`);
+- third: one stereo tap's third-octave bands, (2, 26, N), the per-tap loop
+  of the bands block (engine/batch.py `_band_fits`);
+- third_16ch: one 16-channel tap's (the chunk's 16 channels as one tap),
+  (16, 26, N);
 - three: the chunk's three bands, (8, 2, 3, N);
 - broadband: the chunk's aligned channels, (8, 2, N), the decay block.
 
-For each, the stages of `_band_fits` one at a time: the band plane
-(`fftmask.apply_band_masks`: mask, c2c inverse, real/imag stack), the
-alignment (`trim.shift_to`), K1 (`edc.schroeder_edc_db`), the three fits
-(T30, T20, EDT) through `dbfit.fit_decay_slope_over_db_range` one range at
-a time (`fits_plain`) and, where the tree has it, through
-`dbfit.fit_decay_ranges` (`fits_k5`); and `_band_fits` whole. Each stage is
+For each band plane, the stages of `_band_fits` one at a time: the band
+plane (`fftmask.apply_band_masks`: mask, c2c inverse, real/imag stack);
+K1 reading each row from its start (`k1_starts`, the route the engine
+takes, where the tree's `edc.schroeder_edc_db` has `start`); the route it
+replaced, the alignment (`trim.shift_to`) and K1 without starts on the
+shifted plane (`k1`), each with K1's bound (one read and one write of the
+plane at 3.35 TB/s, `bound_ms`); the three fits (T30, T20, EDT) through
+`dbfit.fit_decay_slope_over_db_range` one range at a time (`fits_plain`)
+and, where the tree has it, through `dbfit.fit_decay_ranges` (`fits_k5`);
+and `_band_fits` whole. Each stage is
 timed two ways: CUDA events around `--reps` back-to-back calls after a warm
 call (ms a call, stream time), and the sum of its device kernels' durations
 under torch.profiler for one call (`device_ms`, the four longest kernels by
@@ -54,12 +61,14 @@ TAPS = 8
 
 
 def chunk(torch, dev):
-    """(TAPS, 2, N) float32 decaying noise with a direct impulse at 10 ms."""
+    """(TAPS, 2, N) float32 decaying noise with a direct impulse at a
+    delay drawn in [64, 2048) per channel."""
     g = torch.Generator(device=dev).manual_seed(0)
-    t = torch.arange(N, device=dev, dtype=torch.float32) / SR
     t60 = torch.exp(torch.empty(TAPS, 1, 1, device=dev).uniform_(0.0, 1.0, generator=g) * 2.7726) * 0.5
-    x = 0.3 * torch.randn(TAPS, 2, N, device=dev, generator=g) * 10.0 ** (-3.0 * t / t60)
-    x[:, :, 480] = 0.9
+    delay = torch.randint(64, 2048, (TAPS, 2, 1), device=dev, generator=g)
+    since = torch.arange(N, device=dev)[None, None, :] - delay
+    x = 0.3 * torch.randn(TAPS, 2, N, device=dev, generator=g) * 10.0 ** (-3.0 * since.clamp(min=0) / SR / t60)
+    x = torch.where(since < 0, 0.0, torch.where(since == 0, 0.9, x))
     return x, torch.full((TAPS,), N - 3072, dtype=torch.int32, device=dev)
 
 
@@ -119,6 +128,8 @@ def k5_bounds(torch, curve, length, ranges, fit_lower: float, fits) -> dict:
 
 def stages(torch, plane_fn, start, length, config, sr: float, reps: int) -> dict:
     """The stages of `_band_fits` on the band plane plane_fn() returns."""
+    import inspect
+
     from audio_analysis_tpu_torch.engine import batch
     from audio_analysis_tpu_torch.ops import dbfit, edc, trim
 
@@ -127,11 +138,17 @@ def stages(torch, plane_fn, start, length, config, sr: float, reps: int) -> dict
     plane = plane_fn()
     out["plane"] = timed(torch, plane_fn, reps)
     shape = plane.shape[:-1]
+    bound_ms = plane.numel() * 8 / 3.35e9
     st, ln = start[..., None].expand(shape), length[..., None].expand(shape)
+    if "start" in inspect.signature(edc.schroeder_edc_db).parameters:
+        out["k1_starts"] = timed(torch, lambda: edc.schroeder_edc_db(
+            plane, ln, config.edc_epsilon, config.edc_floor_db, start=st), reps)
+        out["k1_starts"]["bound_ms"] = bound_ms
     out["shift_to"] = timed(torch, lambda: trim.shift_to(plane, st, ln), reps)
     aligned = trim.shift_to(plane, st, ln)
     out["k1"] = timed(torch, lambda: edc.schroeder_edc_db(aligned.samples, aligned.length,
                                                           config.edc_epsilon, config.edc_floor_db), reps)
+    out["k1"]["bound_ms"] = bound_ms
     curve = edc.schroeder_edc_db(aligned.samples, aligned.length, config.edc_epsilon, config.edc_floor_db)
     del aligned
 
@@ -172,13 +189,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     x, lengths = chunk(torch, dev)
     out = {"card": card, "torch": torch.__version__, "n": N, "taps": TAPS, "reps": args.reps}
-    for mode in ("third", "three"):
-        config = replace(EngineConfig(), band_mode=mode)
+    for mode in ("third", "third_16ch", "three"):
+        config = replace(EngineConfig(), band_mode=mode.split("_")[0])
         tables = batch._device_tables(config, N, dev)
         lengths_bc = lengths[:, None].expand(TAPS, 2)
         aligned = trim.align_for_analysis(x, lengths_bc, SR, config.trim_to_peak, config.ignore_leading_seconds)
         if mode == "third":
             tap, start, length = x[0], aligned.start_index[0], lengths_bc[0]
+        elif mode == "third_16ch":
+            tap, start, length = x.reshape(2 * TAPS, N), aligned.start_index.reshape(-1), lengths_bc.reshape(-1)
         else:
             tap, start, length = x, aligned.start_index, lengths_bc
         masks = tables["band_masks"]

@@ -149,9 +149,9 @@ def test_k1_runs_once_per_decimation_group(mode):
     groups = sorted(set(factors))
     shapes = []
 
-    def spy(samples, *args):
+    def spy(samples, *args, **kwargs):
         shapes.append(tuple(samples.shape))
-        return real(samples, *args)
+        return real(samples, *args, **kwargs)
 
     real = edc.schroeder_edc_db
     with mock.patch.object(edc, "schroeder_edc_db", spy):

@@ -18,7 +18,11 @@ chunks of 16 interleaved channels split on the card against the planar
 CPU run, and their graph runs bit-equal to eager() through one reused
 ring of page-locked staging buffers; and K5 (the engine's decay fits) against its plain version at the
 engine's shapes and on rows that corner the fits, with its launches on one
-engine chunk of each band mode.
+engine chunk of each band mode; K1 reading rows from their starts against
+trim.shift_to and K1 without starts, bit for bit, the step's band outputs
+against the route with each row aligned by slicing first
+(tests/_band_route.py), K1/K5 launches with one
+row-start launch a band plane, and no gather in the bands block.
 Marked `cuda`; every test skips where torch.cuda.is_available() is false.
 JAX is not needed (the card's machine has none). On the card:
 
@@ -136,6 +140,49 @@ def test_edc_kernel_two_calls_bit_identical(dev):
     a = edc.schroeder_edc_db(x, lengths).edc_db
     b = edc.schroeder_edc_db(x, lengths).edc_db
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _rows_from_starts(rows: int, n: int, seed: int, dev):
+    """Rows of decaying noise on [start, length) and NaN elsewhere (a read
+    outside the aligned segment shows), with starts cycling through every
+    misalignment, 0, at and past the row's length and n, each row's start
+    unlike its neighbours', and lengths at and below n."""
+    g = torch.Generator().manual_seed(seed)
+    cycle = [0, 1, 2, 3, 4097, 70_001, n, n - 1, 2, 5, None, 1_000_003]
+    starts, lengths = [], []
+    for r in range(rows):
+        length = n if r % 3 == 0 else int(torch.randint(n // 2, n + 1, (1,), generator=g))
+        start = cycle[r % len(cycle)]
+        start = length + 1 if start is None else min(start, n)  # None: start past the length
+        starts.append(start)
+        lengths.append(length)
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    length = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    tau = 2000.0 + 60000.0 * torch.rand(rows, 1, generator=gd, device=dev)
+    x = torch.randn(rows, n, generator=gd, device=dev) * torch.exp(-t / tau)
+    idx = torch.arange(n, device=dev)[None, :]
+    inside = (idx >= start[:, None]) & (idx < length[:, None])
+    return torch.where(inside, x, float("nan")), start, length
+
+
+# the band rows of one stereo and one 16-channel third-octave tap at the
+# bundle's padded length, a length off the 16-byte grid, and a short one
+@pytest.mark.parametrize("rows", [52, 416])
+@pytest.mark.parametrize("n", [1_155_072, (1 << 20) + 3, 4097])
+def test_edc_kernel_row_starts_equal_shift_then_kernel(dev, rows, n):
+    from audio_analysis_tpu_torch.ops import trim
+
+    x, start, length = _rows_from_starts(rows, n, rows + n, dev)
+    aligned = trim.shift_to(x, start, length)
+    ref = edc.schroeder_edc_db(aligned.samples, aligned.length)
+    del aligned
+    before = (edc.EDC_KERNEL.launches, edc.EDC_SHIFTED.launches)
+    got = edc.schroeder_edc_db(x, length, start=start)
+    assert (edc.EDC_KERNEL.launches - before[0], edc.EDC_SHIFTED.launches - before[1]) == (1, 1)
+    assert torch.equal(got.length, ref.length)
+    assert torch.equal(got.edc_db.view(torch.int32), ref.edc_db.view(torch.int32))
 
 
 def _assert_stft_matches_plain(x, lengths, n_fft, hop, k_out):
@@ -864,3 +911,62 @@ def test_dbfit_launches_on_one_engine_chunk(dev, band_mode, launches):
     before = dbfit.DBFIT_KERNEL.launches
     analyze_batch(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), cfg)
     assert dbfit.DBFIT_KERNEL.launches - before == launches
+
+
+@pytest.mark.parametrize("route", ["three", "third_stereo", "third_16ch", "three_decimate", "third_decimate"])
+def test_band_outputs_bit_equal_to_the_shifted_route_on_card(dev, route):
+    """The step's band outputs with K1 reading each band row from its
+    start, against `_band_fits` with the plane aligned first by slicing
+    each row (tests/_band_route.py), bit for bit."""
+    from _band_route import assert_bit_equal, band_outputs_both_routes
+
+    got, ref = band_outputs_both_routes(route, 1 << 18, dev)
+    assert float(got["band_t30_ok"].float().mean()) > 0.5
+    assert_bit_equal(got, ref)
+
+
+@pytest.mark.parametrize("route", ["three", "third_stereo", "three_decimate", "third_decimate"])
+def test_k1_k5_launches_and_one_shifted_launch_per_band_plane(dev, route):
+    """One chunk of 2 taps: K1 and K5 launch once for the broadband curves
+    and once a band plane (the chunk's at three bands, a tap's at third
+    octaves, one a decimation group), as before; each band plane's K1
+    launch reads through row starts, the broadband one does not."""
+    from _band_route import BAND_ROUTES, route_taps
+
+    band_mode, channels, decimate = BAND_ROUTES[route]
+    n = 1 << 18
+    x, lengths = route_taps(2, channels, n, 3)
+    cfg = dataclasses.replace(EngineConfig(), band_mode=band_mode, bands_decimate=decimate)
+    groups = len(set(fftmask.band_decimation_factors(band_masks(cfg, n), n))) if decimate else 1
+    planes = groups * (1 if band_mode == "three" else 2)
+    counters = (edc.EDC_KERNEL, dbfit.DBFIT_KERNEL, edc.EDC_SHIFTED)
+    before = [c.launches for c in counters]
+    analyze_batch(torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev), cfg)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1 + planes, 1 + planes, planes]
+
+
+@pytest.mark.parametrize("route", ["three", "third_stereo", "third_16ch"])
+def test_no_gather_between_the_bands_and_fr_markers(dev, route):
+    """An eager step under torch.profiler: the device kernels between the
+    `aa_mark_bands` and `aa_mark_fr_gd` markers include K1 and no gather
+    (the shifted plane's `_scatter_gather_elementwise_kernel`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from _band_route import BAND_ROUTES, route_taps
+
+    band_mode, channels, _ = BAND_ROUTES[route]
+    x, lengths = route_taps(2, channels, 1 << 18, 4)
+    xs, ls = torch.from_numpy(x).to(dev), torch.from_numpy(lengths).to(dev)
+    cfg = dataclasses.replace(EngineConfig(), band_mode=band_mode)
+    with eager():
+        analyze_batch(xs, ls, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            analyze_batch(xs, ls, cfg)
+            torch.cuda.synchronize()
+    kernels = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA")
+    marks = {name.split("(")[0]: t for t, name in kernels if name.startswith("aa_mark_")}
+    inside = [name for t, name in kernels if marks["aa_mark_bands"] < t < marks["aa_mark_fr_gd"]]
+    assert any("edc_kernel" in name for name in inside)
+    assert not [name for name in inside if "gather" in name.lower()], inside

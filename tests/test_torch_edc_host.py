@@ -35,7 +35,9 @@ SOURCE = REPO / "audio_analysis_tpu_torch" / "csrc" / "edc.cu"
 HOST_INCLUDE = Path(__file__).resolve().parent / "cuda_host"
 TILE = 4096
 
-_LAUNCH = "edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>("
+# the two launches (with and without row starts), the longer name first
+_LAUNCHES = ("shifted_edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(",
+             "edc_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(")
 _HOST_ENTRIES = """
 extern "C" void host_set_reverse_blocks(int on) { host_reverse_blocks = on != 0; }
 
@@ -61,8 +63,11 @@ def lib_path(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel source for the host")
     src = SOURCE.read_text()
-    assert src.count(_LAUNCH) == 1, "kernel source changed shape"
-    src = src.replace(_LAUNCH, "host_launch(edc_kernel, (unsigned)blocks, kThreads, 0, ") + _HOST_ENTRIES
+    for launch in _LAUNCHES:
+        assert src.count(launch) == 1, "kernel source changed shape"
+        kernel = launch.split("<<<")[0]
+        src = src.replace(launch, f"host_launch({kernel}, (unsigned)blocks, kThreads, 0, ")
+    src += _HOST_ENTRIES
     out = tmp_path_factory.mktemp("edc_host")
     (out / "edc_host.cpp").write_text(src)
     so = out / "libedc_host.so"
@@ -78,7 +83,7 @@ def lib_path(tmp_path_factory):
 def _load(path):
     lib = ctypes.CDLL(str(path))
     p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.aa_edc_db.argtypes = [p, p, p, p, i64, i64, f32, f32, p]
+    lib.aa_edc_db.argtypes = [p, p, p, p, p, i64, i64, f32, f32, p]
     lib.aa_edc_db.restype = ctypes.c_int
     lib.host_set_reverse_blocks.argtypes = [ctypes.c_int]
     lib.host_edc_from_ticket.argtypes = [p, p, p, p, i64, i64, ctypes.c_uint]
@@ -90,9 +95,10 @@ def lib(lib_path):
     return _load(lib_path)
 
 
-def _host_edc(lib, x, lengths, reverse=False, floor_db=-120.0):
+def _host_edc(lib, x, lengths, reverse=False, floor_db=-120.0, starts=None):
     """The kernel through its C entry, on host memory, with the scratch
-    ops/edc.py allocates (NaN-filled, so an unwritten read shows)."""
+    ops/edc.py allocates (NaN-filled, so an unwritten read shows). With
+    `starts`, `lengths` are the aligned lengths, as ops/edc.py passes them."""
     rows, n = x.shape
     tiles = -(-n // TILE)
     scratch = torch.full((2 * rows * tiles + 1,), float("nan"))
@@ -100,8 +106,8 @@ def _host_edc(lib, x, lengths, reverse=False, floor_db=-120.0):
     lib.host_set_reverse_blocks(int(reverse))
     try:
         code = lib.aa_edc_db(
-            x.data_ptr(), lengths.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            rows, n, 1e-20, floor_db, None,
+            x.data_ptr(), lengths.data_ptr(), None if starts is None else starts.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), rows, n, 1e-20, floor_db, None,
         )
     finally:
         lib.host_set_reverse_blocks(0)
@@ -159,6 +165,56 @@ def test_kernel_source_matches_plain(lib, n, rows, lengths, offset):
     x.copy_(torch.where(torch.arange(n)[None, :] < length[:, None].long(), signal, 0.0))
     got = _host_edc(lib, x, length)
     _assert_matches_plain(got, x, length)
+
+
+# Row starts (the bands block's alignment read inside K1): (n, starts,
+# original lengths, storage offset in floats). n a multiple of 4 puts each
+# row's misalignment at start % 4 (0, 1, 2, 3: the 16-byte and the shifted
+# 16-byte paths on whole tiles); an odd n gives neighbouring rows other
+# misalignments; start 0, start >= length (aligned length 0), start = n,
+# start past n, a negative start (clamped to 0, as shift_to does), lengths
+# below n; a base one float into its storage (no shifted 16-byte loads:
+# the scalar path).
+STARTS_CASES = [
+    (4 * TILE, (0, 1, 2, 3), (4 * TILE,) * 4, 0),
+    (4 * TILE, (5, 4098, 7, 4095), (4 * TILE - 100, 4 * TILE, 3 * TILE + 5, 4 * TILE - 1), 0),
+    (3 * TILE + 9, (0, 1, 2, 3, 5, 4097), (3 * TILE + 9, 3 * TILE, 3 * TILE + 9, 2 * TILE + 77, 9000, 3 * TILE), 0),
+    (3 * TILE + 8, (3 * TILE, 3 * TILE + 8, 3 * TILE + 20, -3, 0), (3 * TILE - 5, 3 * TILE + 8, 3 * TILE + 8,
+                                                                 2 * TILE, 0), 0),
+    (2 * TILE + 4, (1, 2, 3), (2 * TILE + 4, 2 * TILE, TILE + 3), 1),
+    (5, (1, 3, 0), (5, 4, 2), 0),
+]
+
+
+def _rows_with_starts(n, starts, lengths, offset, seed):
+    """Decaying noise on each row's [start, length), NaN elsewhere, so any
+    read outside the aligned segment shows in the curve."""
+    rows = len(starts)
+    signal = torch.from_numpy(_decays(rows, n, seed))
+    idx = torch.arange(n)[None, :]
+    st = torch.tensor(starts, dtype=torch.int64)[:, None].clamp(0, n)
+    inside = (idx >= st) & (idx < torch.tensor(lengths, dtype=torch.int64)[:, None])
+    x = torch.zeros(offset + rows * n)[offset:].view(rows, n)
+    x.copy_(torch.where(inside, signal, float("nan")))
+    return x
+
+
+@pytest.mark.parametrize("n,starts,lengths,offset", STARTS_CASES)
+def test_row_starts_equal_shift_then_kernel(lib, n, starts, lengths, offset):
+    """Each row read from its start is bit-identical to ops/trim.py
+    shift_to followed by the kernel without starts, in ticket order and
+    with the blocks reversed."""
+    from audio_analysis_tpu_torch.ops import trim
+
+    x = _rows_with_starts(n, starts, lengths, offset, n + len(starts) + offset)
+    start = torch.tensor(starts, dtype=torch.int32)
+    length = torch.tensor(lengths, dtype=torch.int32)
+    aligned = trim.shift_to(x, start, length)
+    ref = _host_edc(lib, aligned.samples.contiguous(), aligned.length)
+    for reverse in (False, True):
+        got = _host_edc(lib, x, aligned.length, reverse=reverse, starts=start)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), f"reverse={reverse}"
+    _assert_matches_plain(ref, aligned.samples, aligned.length)
 
 
 def test_fast_decay_tail_is_not_a_difference(lib):
@@ -233,14 +289,14 @@ def test_kernel_entry_refuses_bad_arguments(lib, rows, n, null):
         ptrs["scratch"] = buf.data_ptr() + 4
     elif null is not None:
         ptrs[null] = None
-    code = lib.aa_edc_db(ptrs["x"], ptrs["lengths"], ptrs["scratch"], ptrs["out"], rows, n,
+    code = lib.aa_edc_db(ptrs["x"], ptrs["lengths"], None, ptrs["scratch"], ptrs["out"], rows, n,
                          1e-20, -120.0, None)
     assert code != 0
 
 
 def test_empty_call_is_a_no_op(lib):
-    assert lib.aa_edc_db(None, None, None, None, 0, 100, 1e-20, -120.0, None) == 0
-    assert lib.aa_edc_db(None, None, None, None, 3, 0, 1e-20, -120.0, None) == 0
+    assert lib.aa_edc_db(None, None, None, None, None, 0, 100, 1e-20, -120.0, None) == 0
+    assert lib.aa_edc_db(None, None, None, None, None, 3, 0, 1e-20, -120.0, None) == 0
 
 
 def test_wait_on_a_total_never_published_fails_in_bounded_time(lib_path):

@@ -342,3 +342,78 @@ def test_unwrap_nanmax_nanmedian_follow_numpy():
         common.nanmedian(_t(x)).numpy(), np.asarray(jnp.nanmedian(x, axis=-1)), equal_nan=True
     )
     assert common.nanmedian(_t(x)).numpy()[2] == 2.5  # mean of the two middle values
+
+
+# ------------------------------------------------------ EDC row starts ----
+
+# (batch shape, n, starts, original lengths, smoothing window): starts
+# 0-3 (every misalignment), start 0, start >= length (aligned length 0),
+# start = n, past n, negative (clamped to 0, as shift_to does), lengths
+# below n, different starts on neighbouring rows, an odd n, a band plane
+# whose starts broadcast over its bands (the engine's call), a smoothed
+# curve
+EDC_START_CASES = {
+    "misalignments": ((4,), 2 * 4096, (0, 1, 2, 3), (2 * 4096,) * 4, 0),
+    "start_at_or_past_length": ((3,), 5000, (4000, 4001, 4999), (4000, 3000, 5000), 0),
+    "start_n_and_past_n": ((3,), 4100, (4100, 4107, 1), (4100, 4100, 4100), 0),
+    "negative_start": ((2,), 3000, (-3, -1), (2000, 3000), 0),
+    "lengths_below_n": ((4,), 3 * 4096, (7, 4095, 4097, 1), (3 * 4096 - 100, 9000, 4200, 1), 0),
+    "odd_n": ((3,), 4097, (1, 2, 3), (4097, 4097, 600), 0),
+    "start_zero_short_rows": ((2,), 1, (0, 0), (1, 0), 0),
+    "band_plane": ((2, 5), 6000, None, (5900, 5000), 0),
+    "smoothed": ((2,), 6000, (131, 2), (6000, 5500), 33),
+}
+
+
+def _edc_start_inputs(case):
+    shape, n, starts, lengths, _ = EDC_START_CASES[case]
+    rng = np.random.default_rng(len(case) + n)
+    x = torch.from_numpy(rng.standard_normal(shape + (n,)).astype(np.float32))
+    x = x * torch.exp(-torch.arange(n, dtype=torch.float32) / (0.3 * n + 1.0))
+    if starts is None:  # one start and length a channel, shared by its bands
+        start = torch.tensor([3, 1442], dtype=torch.int32)[:, None].expand(shape)
+        length = torch.tensor(lengths, dtype=torch.int32)[:, None].expand(shape)
+    else:
+        start, length = torch.tensor(starts, dtype=torch.int32), torch.tensor(lengths, dtype=torch.int32)
+    return x, start, length
+
+
+@pytest.mark.parametrize("case", sorted(EDC_START_CASES))
+def test_edc_with_row_starts_equals_shift_then_edc(case):
+    """The EDC read from row starts against the EDC of the rows aligned
+    independently, by slicing each row (tests/_band_route.py sliced_rows),
+    bit for bit, with the same aligned lengths."""
+    from _band_route import sliced_rows
+
+    from audio_analysis_tpu_torch.ops import edc
+
+    x, start, length = _edc_start_inputs(case)
+    smooth = EDC_START_CASES[case][4]
+    got = edc.schroeder_edc_db(x, length, smoothing_window_samples=smooth, start=start)
+    aligned, aligned_length = sliced_rows(x, start, length)
+    ref = edc.schroeder_edc_db(aligned, aligned_length, smoothing_window_samples=smooth)
+    assert torch.equal(got.edc_db.view(torch.int32), ref.edc_db.view(torch.int32))
+    assert got.length.dtype == torch.int32 and torch.equal(got.length, aligned_length)
+
+
+@pytest.mark.parametrize("smooth", [0, 33])
+def test_edc_with_zero_starts_equals_no_starts(smooth):
+    from audio_analysis_tpu_torch.ops import edc
+
+    x, _, length = _edc_start_inputs("lengths_below_n")
+    x = torch.where(torch.arange(x.shape[-1]) < length[:, None], x, 0.0)
+    got = edc.schroeder_edc_db(x, length, smoothing_window_samples=smooth, start=torch.zeros_like(length))
+    ref = edc.schroeder_edc_db(x, length, smoothing_window_samples=smooth)
+    assert torch.equal(got.edc_db.view(torch.int32), ref.edc_db.view(torch.int32))
+    assert torch.equal(got.length, ref.length)
+
+
+@pytest.mark.parametrize("route", ["three", "third_stereo", "third_16ch", "three_decimate", "third_decimate"])
+def test_band_fits_read_from_starts_equal_the_shifted_route(route):
+    """The engine's band outputs against `_band_fits` with the plane
+    aligned first by slicing each row (tests/_band_route.py), bit for bit."""
+    from _band_route import assert_bit_equal, band_outputs_both_routes
+
+    got, ref = band_outputs_both_routes(route, 1 << 16, torch.device("cpu"))
+    assert float(got["band_t30_ok"].float().mean()) > 0.5
+    assert_bit_equal(got, ref)

@@ -53,7 +53,7 @@ from audio_analysis_tpu.ops import trim as jtrim  # noqa: E402
 from audio_analysis_tpu.utils import jsonio as jjsonio  # noqa: E402
 from _ar_reference import ar_normal_equations_f64, relative_frobenius  # noqa: E402
 from audio_analysis_tpu_torch.io import wav  # noqa: E402
-from audio_analysis_tpu_torch.ops import common, diffusion, display, edc, logfreq, spectral, stft, trim  # noqa: E402
+from audio_analysis_tpu_torch.ops import common, diffusion, display, edc, logfreq, spectral, stft  # noqa: E402
 from audio_analysis_tpu_torch.utils import jsonio  # noqa: E402
 
 torch.set_num_threads(2)
@@ -281,13 +281,24 @@ def test_log_bin_aggregation_matches_jax():
 
 
 def test_shift_bands_to_matches_jax():
-    x = _decay(6, 5000, 5).reshape(2, 3, 5000)
-    start, length = np.array([100, 4999], np.int32), np.array([5000, 5000], np.int32)
-    got = trim.shift_bands_to(_t(x), _t(start), _t(length))
+    """The port aligns a (channels, bands, N) plane inside the EDC, reading
+    each band row from its channel's start (rt60bands and the engine's
+    bands block); the JAX package shifts the plane with shift_bands_to and
+    then takes the EDC. Same aligned lengths, curves within the unsmoothed
+    EDC tolerance."""
+    x = _decay(9, 5000, 5).reshape(3, 3, 5000)
+    start, length = np.array([100, 4999, 1443], np.int32), np.array([5000, 5000, 4100], np.int32)
+    x[2, :, 4100:] = 0.0
+    plane = x.shape[:-1]
+    got = edc.schroeder_edc_db(
+        _t(x), _t(length)[:, None].expand(plane), start=_t(start)[:, None].expand(plane)
+    )
     with _cpu():
-        theirs = jtrim.shift_bands_to(jnp.asarray(x), jnp.asarray(start), jnp.asarray(length))
-    for a, b in zip(got, theirs):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        aligned = jtrim.shift_bands_to(jnp.asarray(x), jnp.asarray(start), jnp.asarray(length))
+        theirs = jedc.schroeder_edc_db(aligned.samples, aligned.length)
+    np.testing.assert_array_equal(got.length.numpy(), np.asarray(theirs.length))
+    assert got.length.numpy()[1].tolist() == [1, 1, 1]
+    np.testing.assert_allclose(got.edc_db.numpy(), np.asarray(theirs.edc_db), rtol=0, atol=1e-4)
 
 
 def test_stereo_diffusion_rows_and_frame_times_match_jax():
